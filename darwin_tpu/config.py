@@ -60,13 +60,14 @@ class Config:
     # --- [FPGA] ---
     # The reference's pluggable-kernel hook (a DLL path selecting the
     # accelerator implementation, software/main.cpp:237-255).  Here the
-    # analogous knob selects the compute backend: "" = auto (Pallas on
-    # TPU, lax elsewhere), "pallas" or "lax" to force.
+    # analogous knob selects the tile kernel: "" = the platform's default
+    # (the CUDA kernels on a GPU, plain XLA on the CPU), "lax" or "cuda" to
+    # force one (ops/dispatch.py::KERNELS).
     processor_library: str = ""
 
-    # --- TPU-specific knobs (no reference equivalent) ---
+    # --- device knobs (no reference equivalent) ---
     # Device batch of tiles per GACT dispatch (the reference's batch of 2 is
-    # a CPU artifact; thousands of tiles per launch is the TPU design point,
+    # a CPU artifact; an accelerator wants hundreds of tiles per launch,
     # SURVEY.md section 2.3 item 5).
     device_tile_batch: int = 512
     # Concurrent extensions managed by the host extension loop.

@@ -100,8 +100,8 @@ class GenomeStore:
         padded = pad_to(seq_bytes, WORD_SIZE)
         if len(padded) >= 1 << 31:
             # the genome SPACE is uint32/4 GiB, but several device paths
-            # (speculative tile clamping, dispatch.py::_extend_round_spec_
-            # pallas cl32) carry per-chromosome lengths in int32 — check the
+            # (speculative tile clamping, dispatch.py::_extend_round's
+            # cl32) carry per-chromosome lengths in int32 — check the
             # stated invariant once at load instead of leaving it implicit
             raise ValueError(
                 f"chromosome {name!r} is {len(padded)} bases after "

@@ -2,10 +2,17 @@
 
 The reference passes DRAM addresses per tile and lets the kernel index host
 memory with on-the-fly reverse/complement (software/Processor.cpp:105,276).
-TPU-natively, the genome and the read batch live in HBM as uint8 code
-arrays; tiles are gathered on device by index arithmetic (reversal = a
-reversed iota) and fed straight into the batched DP — one dispatch per step,
-nothing but compact results returning to the host.
+Here the genome and the read batch live in device memory as code arrays;
+tiles are gathered on device by index arithmetic (reversal = a reversed
+iota) and fed straight into the batched DP.  Each filter batch and each
+extension round is ONE compiled program (gather + DP + traceback + result
+packing) with one host->device request transfer and one device->host
+result fetch.
+
+The round programs take the tile implementation as a static argument: a
+module with ``filter_scores`` and ``extend_records`` — ``ops.gact`` (plain
+XLA) or ``ops.gact_cuda`` (the CUDA kernels for Hopper).  ``tile_impl``
+picks one from the platform JAX runs on.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from darwin_tpu.ops import gact
+from darwin_tpu.ops import gact, records
 from darwin_tpu.ops.oracle import OP_M as _OPM, OP_I as _OPI, OP_D as _OPD
 
 orc_OP_M = int(_OPM)
@@ -25,59 +32,96 @@ orc_OP_I = int(_OPI)
 orc_OP_D = int(_OPD)
 
 
+# ---------------------------------------------------------------------------
+# tile implementation choice
+# ---------------------------------------------------------------------------
+
+# "lax" = plain XLA (ops/gact.py), "cuda" = the Hopper kernels
+# (ops/gact_cuda.py).  The platform decides; Config.processor_library (the
+# reference's pluggable-kernel hook, params.cfg [FPGA]) or DARWIN_TPU_KERNEL
+# overrides it.
+KERNELS = ("lax", "cuda")
+_forced: str | None = None
+
+
+def _check_kernel(name: str) -> str:
+    name = name.lower()
+    if name not in KERNELS:
+        raise ValueError(
+            f"unknown tile kernel {name!r}; valid values: "
+            f"{', '.join(KERNELS)} (or empty for the platform default)")
+    return name
+
+
+def select_kernel(name: str | None) -> None:
+    """Force the tile kernel for this process ('' / None = platform
+    default).  ``pipeline.align.run`` calls it with
+    ``Config.processor_library`` on every run."""
+    global _forced
+    _forced = _check_kernel(name) if name else None
+
+
 @functools.cache
-def use_pallas() -> bool:
-    """Kernel backend selection: the Pallas kernel (gact_pallas) on real
-    TPUs, the lax.scan reference implementation elsewhere (CPU tests,
-    virtual meshes).  Override with DARWIN_TPU_KERNEL=pallas|lax."""
-    forced = os.environ.get("DARWIN_TPU_KERNEL", "").lower()
-    if forced in ("pallas", "lax"):
-        return forced == "pallas"
-    return jax.devices()[0].platform == "tpu"
+def _platform() -> str:
+    return jax.devices()[0].platform
 
 
-# process-wide telemetry for the lossless recovery paths (sweep spill /
-# compact-record overflow reruns).  Printed as a delta per run() alongside
-# the other non-reference counters; GIL-racing += is fine for telemetry.
+def kernel_name() -> str:
+    """The tile kernel this process runs: 'cuda' on a GPU, 'lax' on the
+    CPU, unless forced (select_kernel / DARWIN_TPU_KERNEL).  Any other
+    platform is an error."""
+    plat = _platform()
+    name = _forced or os.environ.get("DARWIN_TPU_KERNEL", "")
+    if name:
+        name = _check_kernel(name)
+        if name == "cuda" and plat != "gpu":
+            raise ValueError(
+                f"tile kernel 'cuda' needs a GPU; JAX runs on {plat!r}")
+        return name
+    if plat == "gpu":
+        return "cuda"
+    if plat == "cpu":
+        return "lax"
+    raise RuntimeError(f"no device path for platform {plat!r} "
+                       "(supported: gpu, cpu)")
+
+
+def tile_impl(ps, qt: int, rt: int):
+    """Tile implementation module for one dispatch shape and scoring
+    (static params, gact.static_params).  The CUDA kernels cover the
+    shapes and scorings ``gact_cuda.supports`` accepts; everything else —
+    the large escalation tiles, open-cheaper-than-extend scorings — runs
+    the plain XLA implementation."""
+    if kernel_name() == "cuda":
+        from darwin_tpu.ops import gact_cuda
+        if gact_cuda.supports(ps, qt, rt):
+            return gact_cuda
+    return gact
+
+
+# process-wide telemetry for the lossless compact-record overflow reruns.
+# Printed as a delta per run() alongside the other non-reference counters;
+# GIL-racing += is fine for telemetry.
 RECOVERY = {"rerun_dispatches": 0, "rerun_lanes": 0}
 
 
 def rec_bits() -> int:
     """Traceback-record packing width in the fused dispatch results:
     16 = one int16 record per entry (wide), 8 (default) or 4 = 16//bits
-    records per entry (gact_pallas._compact_records).  Narrower packing
-    cuts the dominant device->host fetch of the extension loop 2x/4x; a
-    lane whose traceback holds an insert run wider than the nI field
-    (> 63 at 8 bits, > 3 at 4) is flagged in the result and rerun through
-    the wide layout, so the output is unconditionally lossless at any
-    width.  DARWIN_TPU_RECBITS selects (DARWIN_TPU_REC8=0 forces 16,
-    kept as the A/B alias).  Read per dispatch — the width is a static
-    jit argument, not baked into a cache."""
+    records per entry (records.compact_records).  Narrower packing cuts
+    the dominant device->host fetch of the extension loop 2x/4x; a lane
+    whose traceback holds an insert run wider than the nI field (> 63 at
+    8 bits, > 3 at 4) is flagged in the result and rerun through the wide
+    layout, so the output is unconditionally lossless at any width.
+    DARWIN_TPU_RECBITS selects (DARWIN_TPU_REC8=0 forces 16, kept as the
+    A/B alias).  Read per dispatch — the width is a static jit argument,
+    not baked into a cache."""
     if os.environ.get("DARWIN_TPU_REC8", "") == "0":
         return 16
     bits = int(os.environ.get("DARWIN_TPU_RECBITS", "8"))
     if bits not in (4, 8, 16):
         raise ValueError(f"DARWIN_TPU_RECBITS must be 4, 8 or 16: {bits}")
     return bits
-
-
-def _interp() -> bool:
-    """Run the fused dispatch programs' Pallas kernels in interpret mode
-    (DARWIN_TPU_PALLAS_INTERPRET=1) so the TPU-only dispatch path —
-    speculative chains, spill/overflow reruns, result packing — is
-    testable on CPU.  Read at trace time: set it before the first
-    dispatch in a process (the jit caches bake the value in)."""
-    return os.environ.get("DARWIN_TPU_PALLAS_INTERPRET", "") == "1"
-
-
-def use_pallas_for(params) -> bool:
-    """Backend selection for a concrete scoring.  Since the Pallas kernels
-    gained the generic-scoring closed form (gact_pallas._dp_kernel's
-    `generic` branch) they cover ANY scoring — matching the reference's
-    one-kernel-for-all contract (software/Processor.cpp:48-80) — so this
-    is now just the platform check.  (gact.prefix_ok still routes the
-    *lax* kernel's internal scan choice.)"""
-    return use_pallas()
 
 
 # memoized by params identity + geometry (reading params.sub is a
@@ -100,7 +144,8 @@ def check_int16_packing(params, qt: int, rt: int, max_tb: int):
     key = (id(params), qt, rt, max_tb)
     if key in _PACK_CHECK_CACHE:
         return
-    max_sub = max(max(int(v) for v in row) for row in np.asarray(params.sub))
+    sub = gact.static_params(params)[0]
+    max_sub = max(max(v for v in row) for row in sub)
     bound = max(max_sub, 0) * min(qt, rt)
     if bound >= 1 << 15 or 2 * max_tb >= 1 << 15 or qt + rt >= 1 << 14:
         raise ValueError(
@@ -112,27 +157,6 @@ def check_int16_packing(params, qt: int, rt: int, max_tb: int):
         _PACK_CHECK_KEEP.clear()
     _PACK_CHECK_CACHE[key] = True
     _PACK_CHECK_KEEP.append(params)
-
-
-def _align_and_traceback(qtile, rtile, qlens, rlens, start_end, params,
-                         max_tb, all_start_end):
-    if use_pallas_for(params):
-        from darwin_tpu.ops import gact_pallas
-        return gact_pallas.align_and_traceback(
-            qtile, rtile, qlens, rlens, start_end, params, max_tb,
-            all_start_end=all_start_end)
-    return gact.align_and_traceback(qtile, rtile, qlens, rlens, start_end,
-                                    params, max_tb,
-                                    all_start_end=all_start_end)
-
-
-def _batch_align_scores(qtile, rtile, qlens, rlens, start_end, params):
-    if use_pallas_for(params):
-        from darwin_tpu.ops import gact_pallas
-        return gact_pallas.batch_align(qtile, rtile, qlens, rlens,
-                                       start_end, params, with_trace=False)
-    return gact.batch_align(qtile, rtile, qlens, rlens, start_end, params,
-                            with_trace=False)
 
 
 # Chunk size for >2 GiB genome buffers: a single XLA array past 2^31
@@ -206,68 +230,53 @@ def gather_tiles(ref_codes, query_codes, r_start, r_size, q_start, q_size,
 
 
 def pad_batch(b: int) -> int:
-    """Host-side batch padding for one dispatch.  On the Pallas path the
-    kernel computes full 128-lane blocks regardless, so intermediate
-    power-of-two sizes would only multiply compiled variants (each (B, qt,
-    rt) is its own program) without saving any device work; pad straight
-    to lane-block multiples.  The lax path keeps small powers of two."""
-    if use_pallas():
-        return max(128, -(-b // 128) * 128)
+    """Host-side batch padding for one dispatch: a power of two (min 8),
+    so the number of compiled (B, qt, rt) program variants stays
+    logarithmic in the batch range."""
     return max(8, 1 << (b - 1).bit_length())
 
 
-def _pack_requests(r_start, r_size, q_start, q_size, rev=None):
-    """Stack the per-tile request vectors into ONE (5, B) uint32
-    host->device transfer (the reference's BatchAlignmentInputFieldsDRAM
-    batching, software/Darwin.bond:131-135 — one message per batch, not
-    one per field).  uint32 is the full reference address width (4 GiB
-    DRAM); individual device_puts dominate round latency otherwise."""
-    rows = [np.asarray(r_start, np.uint64), np.asarray(r_size, np.uint64),
-            np.asarray(q_start, np.uint64), np.asarray(q_size, np.uint64),
-            np.zeros(len(np.asarray(r_start)), np.uint64) if rev is None
-            else np.asarray(rev).astype(np.uint64)]
-    return jnp.asarray(np.stack(rows).astype(np.uint32))
+def _pack_requests(r_start, r_size, q_start, q_size, rev=None,
+                   chrom_start=None, chrom_len=None, q_buf_start=None,
+                   q_len=None):
+    """Stack the per-tile request vectors into ONE uint32 host->device
+    transfer (the reference's BatchAlignmentInputFieldsDRAM batching,
+    software/Darwin.bond:131-135 — one message per batch, not one per
+    field).  uint32 is the full reference address width (4 GiB DRAM).
+    Rows: r_start r_size q_start q_size rev, then — when speculation
+    needs them — chrom_start chrom_len q_buf_start q_len."""
+    n = len(np.asarray(r_start))
+    rows = [r_start, r_size, q_start, q_size,
+            np.zeros(n) if rev is None else np.asarray(rev)]
+    if chrom_start is not None:
+        rows += [chrom_start, chrom_len, q_buf_start, q_len]
+    return np.stack([np.asarray(r).astype(np.uint64)
+                     for r in rows]).astype(np.uint32)
 
 
-@functools.partial(jax.jit, static_argnames=("qt", "rt", "max_tb",
-                                             "params_static", "safe",
-                                             "bits"))
-def _extend_round_pallas(ref_codes, query_codes, req, params_static,
-                         qt, rt, max_tb, safe=False, bits=16):
-    """One fused device program per extension round: tile gather + Pallas
-    DP + sweep traceback + result packing.  Returns (R + 6, Bpad) int16:
-    rows [0, R) the traceback records — one per row at bits=16, 16//bits
-    per entry otherwise (gact_pallas._compact_records) — then q_steps,
-    r_steps, score, qpos, rpos, and a flag row (sweep spill |
-    compact-record overflow; flagged lanes rerun wide+safe)."""
-    from darwin_tpu.ops import gact_pallas
+@functools.partial(jax.jit, static_argnames=("impl", "ps", "qt", "rt"))
+def _first_tiles_round(ref_codes, query_codes, req, impl, ps, qt, rt):
+    """One fused device program for the filter stage: gather + max-cell DP,
+    results packed as (3, B) int32 (score, query_max_pos, ref_max_pos)."""
     r_start, r_size = req[0], req[1].astype(jnp.int32)
     q_start, q_size = req[2], req[3].astype(jnp.int32)
-    rev = req[4] != 0
     qtile, rtile = gather_tiles(ref_codes, query_codes, r_start, r_size,
-                                q_start, q_size, rev, qt, rt)
-    se = jnp.ones(r_start.shape, bool)
-    res = gact_pallas._dp_call(qtile, rtile, q_size, r_size, se,
-                               params_static, True, True, _interp())
-    rec, qsteps, rsteps, spill = gact_pallas._tb_call(
-        res["trace"], q_size - 1, r_size - 1, max_tb, _interp(), safe=safe)
-    Bp = rec.shape[1]
-    if bits != 16:
-        rec, ovf = gact_pallas._compact_records(rec, bits)
-        spill = spill | ovf
+                                q_start, q_size, req[4] != 0, qt, rt)
+    return jnp.stack(impl.filter_scores(qtile, rtile, q_size, r_size,
+                                        ps)).astype(jnp.int32)
 
-    def row(x):
-        return jnp.pad(x.astype(jnp.int32), (0, Bp - x.shape[0]))[None, :]
 
-    # int16 halves the per-round device->host transfer; every row fits
-    # (records are 14+2 bits — or an 8-bit pair when compact — steps
-    # <= 2*max_tb <= 2*1984, |score| and positions < 2*tile for any
-    # supported tile geometry)
-    return jnp.concatenate(
-        [rec, qsteps[None, :], rsteps[None, :], row(res["score"]),
-         row(res["query_max_pos"]), row(res["ref_max_pos"]),
-         spill[None, :]],
-        axis=0).astype(jnp.int16)
+def first_tile_scores(ref_codes, query_codes, r_start, r_size, q_start,
+                      q_size, params, qt: int, rt: int):
+    """Filter-stage dispatch: max-cell scores + positions, no traceback
+    (software/filter.cpp:40,71: do_traceback=0, align_fields max-mode).
+    Returns the (3, B) device array; the caller's np.asarray is the
+    (deferred) fetch, so both strands' dispatches overlap."""
+    ps = gact.static_params(params)
+    return _first_tiles_round(
+        ref_codes, query_codes,
+        jnp.asarray(_pack_requests(r_start, r_size, q_start, q_size)),
+        tile_impl(ps, qt, rt), ps, qt, rt)
 
 
 def _device_consumed(rec, r_size, q_size, stop_thr, max_ops):
@@ -329,22 +338,21 @@ def _device_consumed(rec, r_size, q_size, stop_thr, max_ops):
     return dr, dq
 
 
-# Speculative chain depth: rounds are host-round-trip-bound while the
-# chained tile DP is cheap, so deeper chains win until result-fetch
-# bytes catch up (measured optimum ~12 for 10 kb reads; outputs are
-# K-invariant by construction - levels are accepted only while the
-# device-computed request matches the exact host decode).
+# Speculative chain depth for square extension tiles: rounds cost a host
+# round trip each while the chained tile DP is cheap, so one round computes
+# SPEC_K tiles per lane.  Outputs are K-invariant by construction — levels
+# are accepted only while the device-computed request matches the exact
+# host decode.  SPEC_K = 1 turns speculation off.
 SPEC_K = int(os.environ.get("DARWIN_TPU_SPEC_K", "12"))
 
 
 def _subset_requests(req, idx) -> jnp.ndarray:
-    """Columns ``idx`` of a packed request matrix, padded to a 128-lane
-    multiple with benign rows (sizes 1, everything else 0) — the spilled
-    lanes of a round gathered into their own small rerun batch."""
+    """Columns ``idx`` of a packed request matrix, padded (pad_batch) with
+    benign rows (sizes 1, everything else 0) — the flagged lanes of a
+    round gathered into their own small rerun batch."""
     r = np.asarray(req)
     nrows = r.shape[0]
-    bs = max(128, -(-len(idx) // 128) * 128)
-    out = np.zeros((nrows, bs), r.dtype)
+    out = np.zeros((nrows, pad_batch(len(idx))), r.dtype)
     for row in (1, 3, 6, 8):          # r_size, q_size, chrom_len, q_len
         if row < nrows:
             out[row] = 1
@@ -352,177 +360,118 @@ def _subset_requests(req, idx) -> jnp.ndarray:
     return jnp.asarray(out)
 
 
-def _pack_spec_requests(r_start, r_size, q_start, q_size, rev, chrom_start,
-                        chrom_len, q_buf_start, q_len):
-    """Row layout consumed by _extend_round_spec_pallas (rows 0..8);
-    shared by the single-device and mesh speculative dispatchers.
-    Returns (req_u32, r_start_i64, q_start_i64)."""
-    rows = [np.asarray(r_start, np.uint64), np.asarray(r_size, np.uint64),
-            np.asarray(q_start, np.uint64), np.asarray(q_size, np.uint64),
-            np.asarray(rev).astype(np.uint64),
-            np.asarray(chrom_start, np.uint64),
-            np.asarray(chrom_len, np.uint64),
-            np.asarray(q_buf_start, np.uint64),
-            np.asarray(q_len, np.uint64)]
-    return (np.stack(rows).astype(np.uint32),
-            rows[0].astype(np.int64), rows[2].astype(np.int64))
-
-
-@functools.partial(jax.jit, static_argnames=("qt", "rt", "max_tb",
-                                             "params_static", "stop_thr",
-                                             "K", "safe", "bits"))
-def _extend_round_spec_pallas(ref_codes, query_codes, req, params_static,
-                              qt, rt, max_tb, stop_thr, K, safe=False,
-                              bits=16):
-    """K chained extension tiles per dispatch.  Tile 1 is exact; each
-    subsequent tile's request is predicted from the previous tile's
-    cutoff advance (dr, dq) and computed speculatively in the same
-    program.  The packed int16 result carries all K record matrices,
-    tile 1's stats, and each speculative request as deltas vs its
-    predecessor's — the host walks the chain, accepting tile j+1 only
-    while the reconstructed request equals the true one after tile j's
-    exact decode.
+@functools.partial(jax.jit, static_argnames=("impl", "ps", "qt", "rt",
+                                             "max_tb", "stop_thr", "K",
+                                             "bits"))
+def _extend_round(ref_codes, query_codes, req, impl, ps, qt, rt, max_tb,
+                  stop_thr, K, bits):
+    """One fused device program per extension round: K chained tiles per
+    lane.  Tile 1 is exact; each further tile's request is predicted from
+    its predecessor's cutoff advance (dr, dq) and computed speculatively in
+    the same program (a lax.scan over levels).  The packed int16 result
+    carries all K record matrices, tile 1's stats, and each speculative
+    request as deltas vs its predecessor's — the host walks the chain,
+    accepting tile j+1 only while the reconstructed request equals the
+    true one after tile j's exact decode.
 
     Rows: [rec_1..rec_K (K*R) | q_steps1 r_steps1 score1 qpos1 rpos1 |
            (d_rstart d_rsize d_qstart d_qsize) * (K-1) | flag]
-    with R = RTp at bits=16 (one int16 record per row) and
-    ceil(RTp/(16//bits)) otherwise (packed records); flag = sweep spill |
-    compact-record overflow, either of which sends the lane through the
-    wide+safe rerun.
+    with R = RT at bits=16 (one int16 record per row) and
+    ceil(RT/(16//bits)) otherwise (packed records); flag = compact-record
+    overflow, which sends the lane through the wide rerun.  K = 1 needs
+    only the first five request rows.
     """
-    from darwin_tpu.ops import gact_pallas
     r_start, r_size = req[0], req[1].astype(jnp.int32)
     q_start, q_size = req[2], req[3].astype(jnp.int32)
     rev = req[4] != 0
-    chrom_start = req[5]                   # uint32 (full address width)
-    q_buf_start = req[7]
-    q_len = req[8].astype(jnp.int32)
-    se = jnp.ones(r_start.shape, bool)
-    B0 = r_start.shape[0]
-    TT = jnp.int32(qt)                     # speculation is (qt, rt) = (T, T)
-    cl32 = req[6].astype(jnp.int32)        # per-chromosome length < 2^31
 
-    def one_tile(rs, rsz, qs, qsz):
+    def tile(rs, rsz, qs, qsz):
         qtile, rtile = gather_tiles(ref_codes, query_codes, rs, rsz,
                                     qs, qsz, rev, qt, rt)
-        res = gact_pallas._dp_call(qtile, rtile, qsz, rsz, se,
-                                   params_static, True, True, _interp())
-        rec, qsteps, rsteps, spill = gact_pallas._tb_call(
-            res["trace"], qsz - 1, rsz - 1, max_tb, _interp(), safe=safe)
-        return res, rec, qsteps, rsteps, spill
+        return impl.extend_records(qtile, rtile, qsz, rsz, ps, max_tb)
 
-    res1, rec1, qsteps1, rsteps1, spill = one_tile(r_start, r_size,
-                                                   q_start, q_size)
-    Bp = rec1.shape[1]
-
-    def row(x):
-        return jnp.pad(x.astype(jnp.int32), (0, Bp - x.shape[0]))[None, :]
-
+    score1, rec1, qsteps1, rsteps1 = tile(r_start, r_size, q_start, q_size)
     recs = [rec1]
     delta_rows = []
-    # chromosome-relative int32 coordinates (each chromosome < 2^31; the
-    # uint32 subtraction is exact for in-chromosome addresses)
-    rel_r = (r_start.astype(jnp.uint32)
-             - chrom_start.astype(jnp.uint32)).astype(jnp.int32)
-    rel_q = (q_start.astype(jnp.uint32)
-             - q_buf_start.astype(jnp.uint32)).astype(jnp.int32)
-    curr_ref = jnp.where(rev, rel_r, rel_r + r_size - 1)
-    curr_q = jnp.where(rev, rel_q, rel_q + q_size - 1)
-    prev = (r_start, r_size, q_start, q_size, rec1)
-    for _lvl in range(K - 1):
-        p_rs, p_rsz, p_qs, p_qsz, p_rec = prev
-        dr, dq = _device_consumed(p_rec[:, :B0].astype(jnp.int32), p_rsz,
-                                  p_qsz, stop_thr, qt + rt)
-        # next-tile geometry (mirrors _Ext.request / decode clamps):
-        # left: window ending at curr; right: window starting at curr
-        curr_ref = jnp.where(rev, jnp.minimum(curr_ref + dr, cl32),
-                             jnp.maximum(curr_ref - dr, 0))
-        curr_q = jnp.where(rev, jnp.minimum(curr_q + dq, q_len),
-                           jnp.maximum(curr_q - dq, 0))
-        rsz2 = jnp.maximum(jnp.where(rev, jnp.minimum(cl32 - curr_ref, TT),
-                                     jnp.minimum(curr_ref + 1, TT)), 1)
-        qsz2 = jnp.maximum(jnp.where(rev, jnp.minimum(q_len - curr_q, TT),
-                                     jnp.minimum(curr_q + 1, TT)), 1)
-        r_rel2 = jnp.where(rev, curr_ref,
-                           jnp.where(curr_ref >= TT, curr_ref - TT + 1, 0))
-        q_rel2 = jnp.where(rev, curr_q,
-                           jnp.where(curr_q >= TT, curr_q - TT + 1, 0))
-        rs2 = chrom_start.astype(jnp.uint32) + r_rel2.astype(jnp.uint32)
-        qs2 = q_buf_start.astype(jnp.uint32) + q_rel2.astype(jnp.uint32)
-        _, rec2, _, _, spill2 = one_tile(rs2, rsz2, qs2, qsz2)
-        spill = spill | spill2
-        recs.append(rec2)
-        # level-to-level address deltas are < +-2 tiles: exact in int32
-        # (uint32 wraparound difference) and in the int16 packed rows
-        delta_rows += [
-            row((rs2 - p_rs.astype(jnp.uint32)).astype(jnp.int32)),
-            row(rsz2),
-            row((qs2 - p_qs.astype(jnp.uint32)).astype(jnp.int32)),
-            row(qsz2)]
-        prev = (rs2, rsz2, qs2, qsz2, rec2)
+    if K > 1:
+        chrom_start = req[5]                   # uint32 (full address width)
+        cl32 = req[6].astype(jnp.int32)        # per-chromosome length < 2^31
+        q_buf_start = req[7]
+        q_len = req[8].astype(jnp.int32)
+        TT = jnp.int32(qt)                # speculation is (qt, rt) = (T, T)
+        # chromosome-relative int32 coordinates (each chromosome < 2^31; the
+        # uint32 subtraction is exact for in-chromosome addresses)
+        rel_r = (r_start - chrom_start).astype(jnp.int32)
+        rel_q = (q_start - q_buf_start).astype(jnp.int32)
+        curr_ref = jnp.where(rev, rel_r, rel_r + r_size - 1)
+        curr_q = jnp.where(rev, rel_q, rel_q + q_size - 1)
 
-    flag = spill
+        def level(carry, _):
+            p_rs, p_rsz, p_qs, p_qsz, p_rec, curr_ref, curr_q = carry
+            dr, dq = _device_consumed(p_rec, p_rsz, p_qsz, stop_thr, qt + rt)
+            # next-tile geometry (mirrors _Ext.request / decode clamps):
+            # left: window ending at curr; right: window starting at curr
+            curr_ref = jnp.where(rev, jnp.minimum(curr_ref + dr, cl32),
+                                 jnp.maximum(curr_ref - dr, 0))
+            curr_q = jnp.where(rev, jnp.minimum(curr_q + dq, q_len),
+                               jnp.maximum(curr_q - dq, 0))
+            rsz2 = jnp.maximum(jnp.where(rev,
+                                         jnp.minimum(cl32 - curr_ref, TT),
+                                         jnp.minimum(curr_ref + 1, TT)), 1)
+            qsz2 = jnp.maximum(jnp.where(rev,
+                                         jnp.minimum(q_len - curr_q, TT),
+                                         jnp.minimum(curr_q + 1, TT)), 1)
+            r_rel2 = jnp.where(rev, curr_ref,
+                               jnp.where(curr_ref >= TT,
+                                         curr_ref - TT + 1, 0))
+            q_rel2 = jnp.where(rev, curr_q,
+                               jnp.where(curr_q >= TT, curr_q - TT + 1, 0))
+            rs2 = chrom_start + r_rel2.astype(jnp.uint32)
+            qs2 = q_buf_start + q_rel2.astype(jnp.uint32)
+            _, rec2, _, _ = tile(rs2, rsz2, qs2, qsz2)
+            # level-to-level address deltas are < +-2 tiles: exact in int32
+            # (uint32 wraparound difference) and in the int16 packed rows
+            deltas = jnp.stack([(rs2 - p_rs).astype(jnp.int32), rsz2,
+                                (qs2 - p_qs).astype(jnp.int32), qsz2])
+            return ((rs2, rsz2, qs2, qsz2, rec2, curr_ref, curr_q),
+                    (rec2, deltas))
+
+        _, (spec_recs, deltas) = jax.lax.scan(
+            level, (r_start, r_size, q_start, q_size, rec1, curr_ref,
+                    curr_q), None, length=K - 1)
+        recs += [spec_recs[j] for j in range(K - 1)]
+        delta_rows = [deltas.reshape(4 * (K - 1), -1)]
+
+    flag = jnp.zeros(r_start.shape, jnp.int32)
     if bits != 16:
         compacted = []
         for r in recs:
-            cr, ovf = gact_pallas._compact_records(r, bits)
+            cr, ovf = records.compact_records(r, bits)
             compacted.append(cr)
             flag = flag | ovf
         recs = compacted
     return jnp.concatenate(
-        recs + [qsteps1[None, :], rsteps1[None, :], row(res1["score"]),
-                row(res1["query_max_pos"]), row(res1["ref_max_pos"])]
+        recs + [jnp.stack([qsteps1, rsteps1, score1, q_size - 1,
+                           r_size - 1])]
         + delta_rows + [flag[None, :]], axis=0).astype(jnp.int16)
 
 
-def extend_tiles_spec_async(ref_codes, query_codes, r_start, r_size,
-                            q_start, q_size, rev, chrom_start, chrom_len,
-                            q_buf_start, q_len, params, qt: int, rt: int,
-                            max_tb: int, stop_thr: int):
-    """Speculative K-tile extension dispatch (standard square tiles
-    only).  resolve() returns the usual tile-1 dict plus, for each
-    speculative level j in 1..K-1:
+def _make_round_resolver(packed_dev, rerun_wide, B, K, qt, max_tb,
+                         r_start64, q_start64, bits):
+    """Shared resolve() for the packed extension-round result
+    (single-device and mesh paths).  ``rerun_wide(idx)`` -> (packed_subset,
+    cols): the wide-record results for flagged lanes ``idx``, found at
+    columns ``cols`` of the returned matrix.  ``bits`` describes the
+    primary matrix's record layout (the rerun is always wide).
+
+    Returns the tile-1 dict (ops, n_ops, q_steps, r_steps, score,
+    query_max_pos, ref_max_pos) plus, for each speculative level j in
+    1..K-1:
       ops_spec/n_ops_spec : lists of tile j's expanded traceback
       spec_req            : list of (r_start, r_size, q_start, q_size)
                             int64 tuples — the request each speculative
                             tile was actually computed under
     """
-    B = int(np.asarray(r_start).shape[0])
-    K = SPEC_K
-    check_int16_packing(params, qt, rt, max_tb)
-    from darwin_tpu.ops import gact_pallas
-    bits = rec_bits()
-    req, r_start64, q_start64 = _pack_spec_requests(
-        r_start, r_size, q_start, q_size, rev, chrom_start, chrom_len,
-        q_buf_start, q_len)
-    packed_dev = _extend_round_spec_pallas(
-        ref_codes, query_codes, req, gact_pallas._static_params(params),
-        qt, rt, max_tb, stop_thr, K, bits=bits)
-
-    def rerun_wide(idx):
-        # per-lane recovery: only the flagged lanes (sweep spill or
-        # compact-record overflow) rerun — safe sweep, wide records;
-        # returns (packed, source column per idx entry)
-        RECOVERY["rerun_dispatches"] += 1
-        RECOVERY["rerun_lanes"] += len(idx)
-        sub = _extend_round_spec_pallas(
-            ref_codes, query_codes, _subset_requests(req, idx),
-            gact_pallas._static_params(params), qt, rt, max_tb,
-            stop_thr, K, safe=True, bits=16)
-        return sub, np.arange(len(idx))
-
-    return _make_spec_resolver(packed_dev, rerun_wide, B, K, qt, max_tb,
-                               r_start64, q_start64, bits)
-
-
-def _make_spec_resolver(packed_dev, rerun_wide, B, K, qt, max_tb,
-                        r_start64, q_start64, bits):
-    """Shared resolve() for the speculative packed result (single-device
-    and mesh paths).  ``rerun_wide(idx)`` -> (packed_subset, cols): the
-    safe-sweep wide-record results for flagged lanes ``idx``, found at
-    columns ``cols`` of the returned matrix.  ``bits`` describes the
-    primary matrix's record layout (the rerun is always wide)."""
-    from darwin_tpu.ops import gact_pallas
 
     def resolve():
         packed = np.asarray(packed_dev)
@@ -532,15 +481,14 @@ def _make_spec_resolver(packed_dev, rerun_wide, B, K, qt, max_tb,
         # compact rows may carry padded zero records (they expand to no
         # ops), so R*(16//bits) bounds the wide record count from above
         L = min(qt + R * (16 // bits), 2 * max_tb)
-        expand = (gact_pallas._expand_records if bits == 16
-                  else functools.partial(
-                      gact_pallas._expand_records_packed, bits=bits))
+        expand = (records.expand_records if bits == 16
+                  else functools.partial(records.expand_records_packed,
+                                         bits=bits))
         flagged = np.flatnonzero(packed[-1][:B] != 0)
         sub = cols = Rw = None
         tail = packed[K * R:]
-        if flagged.size:  # sweep spill / record overflow: lossless rerun
-            # (RECOVERY telemetry is counted inside rerun_wide; both the
-            # single-device and mesh variants rerun only `flagged`)
+        if flagged.size:  # compact-record overflow: lossless wide rerun
+            # (RECOVERY telemetry is counted inside rerun_wide)
             sub_dev, cols = rerun_wide(flagged)
             sub = np.asarray(sub_dev)
             Rw = (sub.shape[0] - tailr) // K
@@ -551,7 +499,7 @@ def _make_spec_resolver(packed_dev, rerun_wide, B, K, qt, max_tb,
             o, n = expand(packed[j * R:(j + 1) * R], B, L)
             if sub is not None:
                 nv = int(cols.max()) + 1
-                ow, nw = gact_pallas._expand_records(
+                ow, nw = records.expand_records(
                     sub[j * Rw:(j + 1) * Rw], nv, L)
                 o[flagged], n[flagged] = ow[cols], nw[cols]
             return o, n
@@ -578,127 +526,59 @@ def _make_spec_resolver(packed_dev, rerun_wide, B, K, qt, max_tb,
     return resolve
 
 
-@functools.partial(jax.jit, static_argnames=("qt", "rt", "params_static"))
-def _first_tiles_pallas(ref_codes, query_codes, req, params_static, qt, rt):
-    """One fused device program for the filter stage: gather + max-cell DP,
-    results packed as (3, B) int32 (score, query_max_pos, ref_max_pos)."""
-    from darwin_tpu.ops import gact_pallas
-    r_start, r_size = req[0], req[1].astype(jnp.int32)
-    q_start, q_size = req[2], req[3].astype(jnp.int32)
-    rev = req[4] != 0
-    qtile, rtile = gather_tiles(ref_codes, query_codes, r_start, r_size,
-                                q_start, q_size, rev, qt, rt)
-    res = gact_pallas._dp_call(qtile, rtile, q_size, r_size,
-                               jnp.zeros(r_start.shape, bool),
-                               params_static, False, False, _interp())
-    return jnp.stack([res["score"], res["query_max_pos"],
-                      res["ref_max_pos"]]).astype(jnp.int32)
-
-
-def first_tile_scores(ref_codes, query_codes, r_start, r_size, q_start,
-                      q_size, params, qt: int, rt: int):
-    """Filter-stage dispatch: max-cell scores + positions, no traceback
-    (software/filter.cpp:40,71: do_traceback=0, align_fields max-mode)."""
-    if use_pallas_for(params):
-        from darwin_tpu.ops import gact_pallas
-        req = _pack_requests(r_start, r_size, q_start, q_size)
-        packed = _first_tiles_pallas(
-            ref_codes, query_codes, req,
-            gact_pallas._static_params(params), qt, rt)
-        # device arrays — the caller's np.asarray is the (deferred) fetch,
-        # so both strands' dispatches overlap; "packed" lets the caller
-        # pull all three rows in ONE device->host transfer
-        return {"score": packed[0], "query_max_pos": packed[1],
-                "ref_max_pos": packed[2], "packed": packed}
-    B = r_start.shape[0]
-    rev = jnp.zeros((B,), bool)
-    qtile, rtile = gather_tiles(ref_codes, query_codes,
-                                jnp.asarray(np.asarray(r_start, np.uint64)
-                                            .astype(np.uint32)),
-                                jnp.asarray(np.asarray(r_size, np.int32)),
-                                jnp.asarray(np.asarray(q_start, np.uint64)
-                                            .astype(np.uint32)),
-                                jnp.asarray(np.asarray(q_size, np.int32)),
-                                rev, qt, rt)
-    return _batch_align_scores(qtile, rtile,
-                               jnp.asarray(np.asarray(q_size, np.int32)),
-                               jnp.asarray(np.asarray(r_size, np.int32)),
-                               jnp.zeros((B,), bool), params)
+def round_setup(params, r_start, r_size, q_start, q_size, rev, qt, rt,
+                max_tb, chain):
+    """Host-side preparation shared by the single-device and mesh
+    extension dispatchers: (ps, impl, K, stop_thr, bits, req_np,
+    r_start64, q_start64)."""
+    check_int16_packing(params, qt, rt, max_tb)
+    ps = gact.static_params(params)
+    if chain is None:
+        K, stop_thr = 1, 0
+        req = _pack_requests(r_start, r_size, q_start, q_size, rev)
+    else:
+        chrom_start, chrom_len, q_buf_start, q_len, stop_thr = chain
+        K = SPEC_K
+        req = _pack_requests(r_start, r_size, q_start, q_size, rev,
+                             chrom_start, chrom_len, q_buf_start, q_len)
+    return (ps, tile_impl(ps, qt, rt), K, stop_thr, rec_bits(), req,
+            np.asarray(r_start).astype(np.int64),
+            np.asarray(q_start).astype(np.int64))
 
 
 def extend_tiles_async(ref_codes, query_codes, r_start, r_size, q_start,
-                       q_size, rev, params, qt: int, rt: int, max_tb: int):
-    """Extension-stage dispatch, split into enqueue + resolve.
+                       q_size, rev, params, *, qt: int, rt: int,
+                       max_tb: int, chain=None):
+    """Extension-round dispatch, split into enqueue + resolve.
 
-    Returns a zero-arg ``resolve()`` producing the result dict.  The device
-    program is enqueued immediately; the (blocking) device->host fetch only
-    happens inside resolve, so a caller with several tile-shape groups per
-    round can enqueue them all and overlap each group's fetch/decode with
-    the others' compute (the TPU analog of the reference keeping
-    batch_size slots in flight, software/extender.cpp:45-533).
+    Returns a zero-arg ``resolve()`` producing the result dict (see
+    _make_round_resolver).  The device program is enqueued immediately;
+    the (blocking) device->host fetch only happens inside resolve, so a
+    caller with several tile-shape groups per round can enqueue them all
+    and overlap each group's fetch/decode with the others' compute (the
+    analog of the reference keeping batch_size slots in flight,
+    software/extender.cpp:45-533).
 
-    On the Pallas path one host->device transfer carries the whole request
-    batch and one device->host transfer returns the packed traceback
-    records + stats; everything in between is a single compiled program.
+    chain: None computes one exact tile per lane; (chrom_start, chrom_len,
+    q_buf_start, q_len, stop_thr) chains SPEC_K - 1 speculative tiles
+    behind it (square tiles only).
     """
     B = int(np.asarray(r_start).shape[0])
-    if use_pallas_for(params):
-        from darwin_tpu.ops import gact_pallas
-        check_int16_packing(params, qt, rt, max_tb)
-        bits = rec_bits()
-        req = _pack_requests(r_start, r_size, q_start, q_size, rev)
-        packed_dev = _extend_round_pallas(
-            ref_codes, query_codes, req,
-            gact_pallas._static_params(params), qt, rt, max_tb, bits=bits)
+    ps, impl, K, stop_thr, bits, req, r_start64, q_start64 = round_setup(
+        params, r_start, r_size, q_start, q_size, rev, qt, rt, max_tb,
+        chain)
+    packed_dev = _extend_round(ref_codes, query_codes, jnp.asarray(req),
+                               impl, ps, qt, rt, max_tb, stop_thr, K, bits)
 
-        def resolve():
-            packed = np.asarray(packed_dev)
-            R = packed.shape[0] - 6
-            L = min(qt + R * (16 // bits), 2 * max_tb)
-            expand = (gact_pallas._expand_records if bits == 16
-                      else functools.partial(
-                          gact_pallas._expand_records_packed, bits=bits))
-            ops, n_ops = expand(packed[:R], B, L)
-            tail = packed[R:]
-            flagged = np.flatnonzero(packed[-1][:B] != 0)
-            if flagged.size:
-                # fast-sweep spill or compact-record overflow: those
-                # lanes rerun safe + wide (lossless either way)
-                RECOVERY["rerun_dispatches"] += 1
-                RECOVERY["rerun_lanes"] += int(flagged.size)
-                sub = np.asarray(_extend_round_pallas(
-                    ref_codes, query_codes, _subset_requests(req, flagged),
-                    gact_pallas._static_params(params), qt, rt, max_tb,
-                    safe=True, bits=16))
-                Rw = sub.shape[0] - 6
-                ow, nw = gact_pallas._expand_records(
-                    sub[:Rw], flagged.size, L)
-                ops[flagged], n_ops[flagged] = ow, nw
-                tail = np.array(tail)
-                tail[:, flagged] = sub[Rw:][:, :flagged.size]
-            return {"ops": ops, "n_ops": n_ops,
-                    "q_steps": tail[0][:B], "r_steps": tail[1][:B],
-                    "score": tail[2][:B], "query_max_pos": tail[3][:B],
-                    "ref_max_pos": tail[4][:B]}
-        return resolve
-    qtile, rtile = gather_tiles(ref_codes, query_codes,
-                                jnp.asarray(np.asarray(r_start, np.uint64)
-                                            .astype(np.uint32)),
-                                jnp.asarray(np.asarray(r_size, np.int32)),
-                                jnp.asarray(np.asarray(q_start, np.uint64)
-                                            .astype(np.uint32)),
-                                jnp.asarray(np.asarray(q_size, np.int32)),
-                                jnp.asarray(np.asarray(rev)), qt, rt)
-    res = _align_and_traceback(
-        qtile, rtile, jnp.asarray(np.asarray(q_size, np.int32)),
-        jnp.asarray(np.asarray(r_size, np.int32)),
-        jnp.ones((B,), bool), params, max_tb, all_start_end=True)
-    return lambda: res
+    def rerun_wide(idx):
+        # per-lane recovery: only the flagged lanes rerun, wide records;
+        # returns (packed, source column per idx entry)
+        RECOVERY["rerun_dispatches"] += 1
+        RECOVERY["rerun_lanes"] += len(idx)
+        sub = _extend_round(ref_codes, query_codes,
+                            _subset_requests(req, idx), impl, ps, qt, rt,
+                            max_tb, stop_thr, K, 16)
+        return sub, np.arange(len(idx))
 
-
-def extend_tiles(ref_codes, query_codes, r_start, r_size, q_start, q_size,
-                 rev, params, qt: int, rt: int, max_tb: int):
-    """Synchronous extension-stage dispatch (see extend_tiles_async)."""
-    return extend_tiles_async(ref_codes, query_codes, r_start, r_size,
-                              q_start, q_size, rev, params, qt=qt, rt=rt,
-                              max_tb=max_tb)()
+    return _make_round_resolver(packed_dev, rerun_wide, B, K, qt, max_tb,
+                                r_start64, q_start64, bits)

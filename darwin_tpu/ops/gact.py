@@ -5,20 +5,25 @@ Semantics match ``darwin_tpu.ops.oracle.clean_align`` /
 DualAlignSIMD kernel (software/Processor.cpp:164-566); see oracle.py for the
 recurrences and tie-break rules.
 
-TPU-first design (vs. the reference's per-tile function calls batched two at
-a time, software/params.cfg:39):
+This is the plain XLA implementation: the CPU path, the reference the CUDA
+kernels (ops/gact_cuda.py) are checked against, and the GPU path for the
+shapes and scorings those kernels do not cover.  Design (vs. the
+reference's per-tile function calls batched two at a time,
+software/params.cfg:39):
 
-* Tiles are batched *thousands per dispatch*; the batch is the leading axis
-  of every array and the natural pjit sharding axis.
+* Tiles are batched *hundreds per dispatch*; the batch is the leading axis
+  of every array and the natural sharding axis.
 * The DP runs as one ``lax.scan`` over reference columns.  The within-column
   short/long-gap coupling (F, F_L, H) is a max-plus *affine* recurrence with
-  a constant 2x2 matrix, solved with ``lax.associative_scan`` — log-depth,
+  a constant 2x2 matrix: a prefix max in the usual open <= extend domain
+  (``_column_gaps_prefix``), ``lax.associative_scan`` otherwise — log-depth,
   fully vectorized over (batch, query) instead of the reference's lazy-F
   iteration (Processor.cpp:382-497).
-* Per-cell trace words (13 bits, layout of Processor.h:17-34) are emitted to
-  HBM; traceback runs as a second, batch-vectorized ``lax.while_loop`` that
-  chases pointers for all tiles in parallel (the reference walks one tile at
-  a time on the host, Processor.cpp:585-716).
+* Per-cell 8-bit trace words (derived from the 13-bit layout of
+  Processor.h:17-34) are written to device memory; traceback runs as a
+  second, batch-vectorized ``lax.scan`` that chases pointers for all tiles
+  in parallel (the reference walks one tile at a time on the host,
+  Processor.cpp:585-716).
 
 All tiles in a dispatch share a static (QT, RT) shape; per-tile actual sizes
 are dynamic and masked.  Padded cells never feed valid cells (DP flows
@@ -81,8 +86,8 @@ class GactParams(NamedTuple):
 
 
 # prefix_ok/window results memoized by params identity: the fields are
-# tiny device arrays, so int() is a blocking device fetch (milliseconds
-# through a network-attached TPU) that must not run per dispatch.  The
+# tiny device arrays, so int() is a blocking device fetch that must not
+# run per dispatch.  The
 # keep-list pins the params objects so ids stay unique; it is bounded —
 # past _PARAMS_CACHE_MAX distinct params objects both structures reset
 # (ids may then be reused, but only after the cache referencing them is
@@ -107,7 +112,7 @@ def prefix_ok(params) -> bool:
     (the reference accepts any, software/Processor.cpp:48-80) route
     through the generic max-plus scan.  Raises on traced params — a jit
     caller must resolve this from concrete values before tracing (see
-    use_pallas_for and the mesh dispatcher) and pass an explicit
+    static_params) and pass an explicit
     ``prefix_gaps`` bool; silently guessing here would pick the wrong DP
     for generic scorings."""
     key = ("prefix_ok", id(params))
@@ -425,8 +430,7 @@ def _tb_transition(w, i, j, qs, rs, st):
     return (i, j, qs, rs, nst), op.astype(jnp.uint8)
 
 
-@functools.partial(jax.jit, static_argnames=("max_tb_steps",))
-def batch_traceback(trace, start_q, start_r, max_tb_steps):
+def _walk(trace, start_q, start_r, max_tb_steps):
     """Batched traceback over (RT, B, QT) 8-bit trace words.
 
     Walks DualAlignSIMDTraceback's state machine (Processor.cpp:585-716) for
@@ -438,19 +442,14 @@ def batch_traceback(trace, start_q, start_r, max_tb_steps):
     fixed-length ``lax.scan`` of min(QT+RT, 2*max_tb_steps) steps suffices
     and ops land in a contiguous prefix per lane (no scatter).
 
-    Returns:
-      ops      : (B, L) uint8, op codes in traceback order (orc.OP_M/I/D)
-      n_ops    : (B,) int32 total ops (total_TB_pointers)
-      q_steps  : (B,) int32 query bases consumed (query_offset)
-      r_steps  : (B,) int32 ref bases consumed (ref_offset)
+    Returns (ops (B, L) uint8, cols (B, L) int32 — the reference column each
+    op was emitted in — q_steps, r_steps).
     """
     RT, B, QT = trace.shape
-    tr2d = trace.transpose(1, 0, 2).reshape(B, RT * QT)
+    lane = jnp.arange(B, dtype=jnp.int32)
     L = min(QT + RT, 2 * max_tb_steps)
-    UNROLL = 8  # sub-steps per scan iteration (amortizes loop overhead)
-    n_iter = -(-L // UNROLL)
 
-    def substep(state):
+    def step(state, _):
         i, j, qs, rs, st = state
 
         # steps cap + bounds, checked at loop top (Processor.cpp:613-618)
@@ -458,25 +457,54 @@ def batch_traceback(trace, start_q, start_r, max_tb_steps):
         oob = (i < 0) | (j < 0)
         st = jnp.where(capped | oob, _ST_DONE, st)
 
-        idx = jnp.clip(j, 0, RT - 1) * QT + jnp.clip(i, 0, QT - 1)
-        w = jnp.take_along_axis(tr2d, idx[:, None], axis=1)[:, 0]
-        return _tb_transition(w, i, j, qs, rs, st)
-
-    def step(state, _):
-        ops = []
-        for _k in range(UNROLL):
-            state, op = substep(state)
-            ops.append(op)
-        return state, jnp.stack(ops)  # (UNROLL, B)
+        # one step per scan iteration: unrolled steps let XLA fuse each
+        # gather into its successors', recomputing the whole chain
+        w = trace.at[jnp.clip(j, 0, RT - 1), lane,
+                     jnp.clip(i, 0, QT - 1)].get(mode="promise_in_bounds")
+        state, op = _tb_transition(w, i, j, qs, rs, st)
+        return state, (op, j)
 
     zeros = jnp.zeros((B,), jnp.int32)
     state0 = (start_q.astype(jnp.int32), start_r.astype(jnp.int32),
               zeros, zeros, jnp.full((B,), _ST_DIAG, jnp.int32))
-    (i, j, qs, rs, st), ops = jax.lax.scan(step, state0, None, length=n_iter)
-    # (n_iter, UNROLL, B) -> (B, n_iter*UNROLL); contiguous prefix per lane
-    ops = ops.reshape(n_iter * UNROLL, B).T
+    (i, j, qs, rs, st), (ops, cols) = jax.lax.scan(step, state0, None,
+                                                   length=L)
+    # (L, B) -> (B, L); contiguous prefix per lane
+    return ops.T, cols.T, qs, rs
+
+
+@functools.partial(jax.jit, static_argnames=("max_tb_steps",))
+def batch_traceback(trace, start_q, start_r, max_tb_steps):
+    """Serial traceback walker (see _walk).
+
+    Returns:
+      ops      : (B, L) uint8, op codes in traceback order (orc.OP_M/I/D)
+      n_ops    : (B,) int32 total ops (total_TB_pointers)
+      q_steps  : (B,) int32 query bases consumed (query_offset)
+      r_steps  : (B,) int32 ref bases consumed (ref_offset)
+    """
+    ops, _, qs, rs = _walk(trace, start_q, start_r, max_tb_steps)
     n = jnp.sum((ops != orc.OP_NONE).astype(jnp.int32), axis=1)
     return {"ops": ops, "n_ops": n, "q_steps": qs, "r_steps": rs}
+
+
+def traceback_records(trace, start_q, start_r, max_tb_steps):
+    """The serial walk folded into per-column traceback records on the
+    device: (RT, B) int32 with bits 0..13 the number of I ops emitted in
+    the column and bits 14..15 the op that left it (OP_M / OP_D, 0 where
+    the walk ended or never came).  A column holds at most one closing op
+    (M and D move to the next column), so the records are exact for any
+    trace (ops/records.py expands them back to the walker's op stream).
+    Returns (rec, q_steps, r_steps)."""
+    RT, B, _ = trace.shape
+    ops, cols, qs, rs = _walk(trace, start_q, start_r, max_tb_steps)
+    ops = ops.astype(jnp.int32)
+    val = jnp.where(ops == orc.OP_I, 1,
+                    jnp.where(ops == orc.OP_NONE, 0, ops << 14))
+    cols = jnp.where(ops == orc.OP_NONE, RT, cols)    # dropped below
+    lane = jax.lax.broadcasted_iota(jnp.int32, ops.shape, 0)
+    rec = jnp.zeros((RT, B), jnp.int32).at[cols, lane].add(val, mode="drop")
+    return rec, qs, rs
 
 
 def align_and_traceback(qcodes, rcodes, qlens, rlens, start_end, params,
@@ -497,3 +525,58 @@ def align_and_traceback(qcodes, rcodes, qlens, rlens, start_end, params,
                          jnp.where(start_end, rlens - 1, res["ref_max_pos"]),
                          max_tb_steps)
     return {k: v for k, v in res.items() if k != "trace"} | tb
+
+
+# ---------------------------------------------------------------------------
+# Tile implementation for the fused dispatch rounds (ops/dispatch.py)
+# ---------------------------------------------------------------------------
+#
+# A tile implementation is a module with ``filter_scores`` and
+# ``extend_records`` of the signatures below; the round programs take it as
+# a static argument.  This one is plain XLA (the CPU path, and the side the
+# GPU kernel of ops/gact_cuda.py is measured against).  Scoring arrives as
+# static Python ints (``static_params``), so the prefix/generic gap-scan
+# choice and the scan windows are fixed at trace time.
+
+def static_params(params: GactParams):
+    """Scoring as hashable Python ints: (sub 5x5 tuple, go, ge, goL, geL).
+    Memoized by params identity (reading the fields is a device fetch)."""
+    key = ("static", id(params))
+    if key not in _PARAMS_CACHE:
+        sub = tuple(tuple(int(v) for v in row)
+                    for row in np.asarray(params.sub))
+        _params_memo_put(key, (sub, int(params.gap_open),
+                               int(params.gap_extend),
+                               int(params.long_gap_open),
+                               int(params.long_gap_extend)), params)
+    return _PARAMS_CACHE[key]
+
+
+def _dp_static(qtile, rtile, qlens, rlens, start_end, ps, with_trace,
+               all_start_end):
+    sub, go, ge, goL, geL = ps
+    params = GactParams(jnp.asarray(sub, jnp.int32), jnp.int32(go),
+                        jnp.int32(ge), jnp.int32(goL), jnp.int32(geL))
+    prefix = go <= ge and goL <= geL
+    wins = (orc.gap_scan_windows(go, ge, goL, geL, qtile.shape[1])
+            if prefix else None)
+    return _batch_align(qtile, rtile, qlens, rlens, start_end, params,
+                        with_trace, prefix, all_start_end, wins)
+
+
+def filter_scores(qtile, rtile, qlens, rlens, ps):
+    """Max-cell DP without trace (the filter stage's first tiles).
+    Returns (score, query_max_pos, ref_max_pos), each (B,) int32."""
+    res = _dp_static(qtile, rtile, qlens, rlens,
+                     jnp.zeros(qlens.shape, bool), ps, False, False)
+    return res["score"], res["query_max_pos"], res["ref_max_pos"]
+
+
+def extend_records(qtile, rtile, qlens, rlens, ps, max_tb):
+    """End-cell DP + traceback of extension tiles.  Returns (score, rec
+    (RT, B) int32 traceback records, q_steps, r_steps)."""
+    res = _dp_static(qtile, rtile, qlens, rlens,
+                     jnp.ones(qlens.shape, bool), ps, True, True)
+    rec, qs, rs = traceback_records(res["trace"], qlens - 1, rlens - 1,
+                                    max_tb)
+    return res["score"], rec, qs, rs

@@ -1,9 +1,9 @@
 """Multi-host execution (jax.distributed).
 
 The reference is strictly single-process (SURVEY.md section 2.4 — no
-MPI/NCCL/sockets; its only seam is the host->FPGA Bond ABI).  The TPU-pod
+MPI/NCCL/sockets; its only seam is the host->FPGA Bond ABI).  The multi-host
 equivalent scales over *hosts* the same way the device path scales over
-chips: the read stream is the data axis.
+devices: the read stream is the data axis.
 
 Design (scaling-book style: pick a mesh, shard the batch, keep the hot
 loop communication-free):

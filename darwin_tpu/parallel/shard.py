@@ -1,18 +1,18 @@
-"""Multi-chip sharding of the alignment pipeline.
+"""Multi-device sharding of the alignment pipeline.
 
 The reference is single-process (SURVEY.md section 2.4: no distributed
-backend exists; the Bond ABI marks a host->accelerator seam).  On TPU the
+backend exists; the Bond ABI marks a host->accelerator seam).  Here the
 scaling axes are:
 
 * ``data`` — reads, and therefore tiles/anchors derived from them, shard
-  across devices.  Every batched kernel (D-SOFT, first tiles, GACT extend
-  tiles) is embarrassingly parallel over its batch dimension, so sharding
-  in_specs on the batch axis lets XLA run each shard locally with zero
-  communication in the hot loop.
-* the seed table and genome are replicated when they fit (yeast/human easily
-  fit one v5 HBM); hash-range sharding with all-to-all hit exchange is the
-  planned extension for >HBM genomes.
-* result reduction (counters, stats) uses psum over the mesh.
+  across devices.  Every batched program (D-SOFT, first tiles, GACT
+  extension rounds) is embarrassingly parallel over its batch dimension:
+  each device runs the same fused round program on its slice of the
+  request batch (``jax.shard_map``), with zero communication in the hot
+  loop.
+* the seed table and genome are replicated when they fit; hash-range
+  sharding with all-to-all hit exchange (parallel/shard_index.py) serves
+  tables beyond one device's memory.
 
 All entry points here are mesh-agnostic: build a mesh with ``make_mesh`` (on
 CPU tests an 8-device virtual mesh) and pass it in.
@@ -23,13 +23,10 @@ from __future__ import annotations
 import functools
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from darwin_tpu.ops import gact
-from darwin_tpu.ops.dispatch import (gather_tiles, use_pallas,
-                                     use_pallas_for)
+from darwin_tpu.ops import dispatch, gact
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "data") -> Mesh:
@@ -49,119 +46,21 @@ def replicate(mesh: Mesh, *arrays):
     return tuple(jax.device_put(a, sharding) for a in arrays)
 
 
-@functools.partial(jax.jit, static_argnames=("qt", "rt", "max_tb",
-                                             "prefix_gaps"))
-def _extend_step(ref_codes, query_codes, r_start, r_size, q_start, q_size,
-                 rev, params, qt, rt, max_tb, prefix_gaps=True):
-    # prefix_gaps must be resolved by the caller from CONCRETE params:
-    # inside this jit the params are tracers and gact's auto-detection
-    # would silently default to the prefix scan for generic scorings
-    qtile, rtile = gather_tiles(ref_codes, query_codes, r_start, r_size,
-                                q_start, q_size, rev, qt, rt)
-    res = gact.align_and_traceback(
-        qtile, rtile, q_size.astype(jnp.int32), r_size.astype(jnp.int32),
-        jnp.ones(r_start.shape, bool), params, max_tb, all_start_end=True,
-        prefix_gaps=prefix_gaps)
-    return res
-
-
-def sharded_extend_tiles(mesh: Mesh, ref_codes, query_codes, r_start, r_size,
-                         q_start, q_size, rev, params, *, qt, rt, max_tb):
-    """Run one batched GACT tile step with the tile batch sharded over the
-    mesh and the sequence buffers replicated.  XLA compiles this to fully
-    local per-device work (batch-dim sharding propagates through gather,
-    scan, and the traceback while_loop)."""
-    (ref_codes, query_codes) = replicate(mesh, ref_codes, query_codes)
-    (r_start, r_size, q_start, q_size, rev) = shard_batch(
-        mesh, r_start, r_size, q_start, q_size, rev)
-    return _extend_step(ref_codes, query_codes, r_start, r_size, q_start,
-                        q_size, rev, params, qt, rt, max_tb,
-                        prefix_gaps=gact.prefix_ok(params))
-
-
 @functools.cache
-def _pallas_extend_step(mesh: Mesh, params_static, qt, rt, max_tb,
-                        axis: str = "data", safe: bool = False,
-                        bits: int = 16):
-    """shard_map'd Pallas extend-tile step: each device gathers and aligns
-    its local slice of the tile batch with the Pallas kernel (Pallas calls
-    don't partition automatically under pjit the way lax.scan does, so the
-    per-device program is made explicit).  Requires the local batch to be a
-    multiple of 128 lanes (MeshDispatcher.pad guarantees it)."""
-    from jax.experimental.shard_map import shard_map
-    from darwin_tpu.ops import gact_pallas
-
-    P_ = P
-    spec_b = P_(axis)
-    spec_rep = P_()
-
-    def step(refc, qc, r_start, r_size, q_start, q_size, rev):
-        from darwin_tpu.ops.dispatch import _interp
-        qtile, rtile = gather_tiles(refc, qc, r_start, r_size, q_start,
-                                    q_size, rev, qt, rt)
-        res = gact_pallas._dp_call(
-            qtile, rtile, q_size.astype(jnp.int32), r_size.astype(jnp.int32),
-            jnp.ones(r_start.shape, bool), params_static,
-            True, True, _interp())
-        rec, qsteps, rsteps, spill = gact_pallas._tb_call(
-            res.pop("trace"), q_size.astype(jnp.int32) - 1,
-            r_size.astype(jnp.int32) - 1, max_tb, _interp(), safe=safe)
-        if bits != 16:
-            rec, ovf = gact_pallas._compact_records(rec, bits)
-            spill = spill | ovf
-        return res | {"rec": rec.astype(jnp.int16), "q_steps_all": qsteps,
-                      "r_steps_all": rsteps, "spill": spill}
-
-    out_specs = {"score": spec_b, "query_max_pos": spec_b,
-                 "ref_max_pos": spec_b, "rec": P_(None, axis),
-                 "q_steps_all": spec_b, "r_steps_all": spec_b,
-                 "spill": spec_b}
-    return jax.jit(shard_map(
-        step, mesh=mesh,
-        in_specs=(spec_rep, spec_rep, spec_b, spec_b, spec_b, spec_b,
-                  spec_b),
-        out_specs=out_specs, check_rep=False))
-
-
-@functools.cache
-def _pallas_first_tiles_step(mesh: Mesh, params_static, qt, rt,
-                             axis: str = "data"):
-    """shard_map'd filter-stage step: each device gathers and scores its
-    local slice of the first-tile batch."""
-    from jax.experimental.shard_map import shard_map
-    from darwin_tpu.ops.dispatch import _first_tiles_pallas
-
-    spec_cols = P(None, axis)
+def _mesh_program(mesh: Mesh, round_fn, static: tuple):
+    """shard_map'd round program: each device runs ``round_fn`` (a fused
+    round of ops/dispatch.py) on its local column slice of the packed
+    request matrix, against the replicated sequence buffers.  Per-device
+    speculation needs no communication, so the mesh path keeps the
+    round-trip-amortizing chain the single-device path has."""
+    kw = dict(static)
+    cols = P(None, "data")
 
     def step(refc, qc, req):
-        return _first_tiles_pallas(refc, qc, req, params_static, qt, rt)
+        return round_fn(refc, qc, req, **kw)
 
-    return jax.jit(shard_map(
-        step, mesh=mesh, in_specs=(P(), P(), spec_cols),
-        out_specs=spec_cols, check_rep=False))
-
-
-@functools.cache
-def _pallas_spec_step(mesh: Mesh, params_static, qt, rt, max_tb, stop_thr,
-                      K, axis: str = "data", safe: bool = False,
-                      bits: int = 16):
-    """shard_map'd speculative K-tile extension round: each device runs
-    the full chained-tile program on its local slice of the request batch
-    — per-device speculation needs no communication, so the mesh path
-    keeps the round-trip-amortizing chain the single-chip path has."""
-    from jax.experimental.shard_map import shard_map
-    from darwin_tpu.ops.dispatch import _extend_round_spec_pallas
-
-    spec_cols = P(None, axis)
-
-    def step(refc, qc, req):
-        return _extend_round_spec_pallas(refc, qc, req, params_static,
-                                         qt, rt, max_tb, stop_thr, K,
-                                         safe=safe, bits=bits)
-
-    return jax.jit(shard_map(
-        step, mesh=mesh, in_specs=(P(), P(), spec_cols),
-        out_specs=spec_cols, check_rep=False))
+    return jax.jit(jax.shard_map(step, mesh=mesh, in_specs=(P(), P(), cols),
+                                 out_specs=cols, check_vma=False))
 
 
 def _local0(arr):
@@ -186,170 +85,65 @@ class MeshDispatcher:
     def put_replicated(self, arr):
         return jax.device_put(arr, NamedSharding(self.mesh, P()))
 
-    def _shard(self, *arrays):
-        return shard_batch(self.mesh, *arrays)
+    def _put_cols(self, req):
+        return jax.device_put(req, NamedSharding(self.mesh, P(None, "data")))
 
     def pad(self, b: int) -> int:
-        """Round a batch size up so every shard is non-empty and equal
-        (and, on the Pallas path, a full 128-lane block per device)."""
-        m = self.n * 128 if use_pallas() else max(self.n, 8)
+        """Round a batch size up so every shard is non-empty and equal."""
+        m = max(self.n, 8)
         return -(-b // m) * m
 
     def extend_tiles_async(self, ref_codes, query_codes, r_start, r_size,
                            q_start, q_size, rev, params, *, qt, rt,
-                           max_tb):
-        """Enqueue one extension round; the returned resolve() performs
-        every blocking fetch (including the fast-sweep spill check), so a
-        caller with several tile-shape groups per round can enqueue them
-        all and overlap compute with fetch/decode — same contract as
+                           max_tb, chain=None):
+        """Extension round over the mesh; same contract as
         ops.dispatch.extend_tiles_async."""
-        B = int(r_start.shape[0])
-        if use_pallas_for(params):
-            from darwin_tpu.ops import gact_pallas
-            from darwin_tpu.ops.dispatch import (_extend_round_pallas,
-                                                 _pack_requests,
-                                                 _subset_requests, rec_bits)
-            # host copy of the requests for per-lane recovery reruns
-            req_np = np.asarray(_pack_requests(r_start, r_size, q_start,
-                                               q_size, rev))
-        (r_start, r_size, q_start, q_size, rev) = self._shard(
-            r_start, r_size, q_start, q_size, rev)
-        if use_pallas_for(params):
-            ps = gact_pallas._static_params(params)
-            bits = rec_bits()
-            step = _pallas_extend_step(self.mesh, ps, qt, rt, max_tb,
-                                       bits=bits)
-            out0 = step(ref_codes, query_codes, r_start, r_size, q_start,
-                        q_size, rev)
-
-            def resolve():
-                out = dict(out0)
-                spill = np.asarray(out.pop("spill"))
-                rec = np.asarray(out.pop("rec"))
-                qsteps = np.asarray(out.pop("q_steps_all"))[:B]
-                rsteps = np.asarray(out.pop("r_steps_all"))[:B]
-                L = min(qt + rec.shape[0] * (16 // bits), 2 * max_tb)
-                expand = (gact_pallas._expand_records if bits == 16
-                          else functools.partial(
-                              gact_pallas._expand_records_packed,
-                              bits=bits))
-                ops, n_ops = expand(rec, B, L)
-                flagged = np.flatnonzero(spill[:B])
-                if flagged.size:
-                    # sweep spill or compact-record overflow: gather the
-                    # flagged lanes into one small single-device rerun
-                    # (safe sweep + wide records — lossless either way)
-                    # instead of rerunning the whole sharded batch; same
-                    # per-lane pattern as ops.dispatch.extend_tiles_async
-                    from darwin_tpu.ops.dispatch import RECOVERY
-                    RECOVERY["rerun_dispatches"] += 1
-                    RECOVERY["rerun_lanes"] += int(flagged.size)
-                    sub = np.asarray(_extend_round_pallas(
-                        _local0(ref_codes), _local0(query_codes),
-                        _subset_requests(req_np, flagged), ps, qt, rt,
-                        max_tb, safe=True, bits=16))
-                    Rw = sub.shape[0] - 6
-                    ow, nw = gact_pallas._expand_records(
-                        sub[:Rw], flagged.size, L)
-                    ops[flagged], n_ops[flagged] = ow, nw
-                    qsteps = np.array(qsteps)
-                    rsteps = np.array(rsteps)
-                    qsteps[flagged] = sub[Rw][:flagged.size]
-                    rsteps[flagged] = sub[Rw + 1][:flagged.size]
-                    for key, row in (("score", Rw + 2),
-                                     ("query_max_pos", Rw + 3),
-                                     ("ref_max_pos", Rw + 4)):
-                        v = np.array(np.asarray(out[key]))
-                        v[flagged] = sub[row][:flagged.size]
-                        out[key] = v
-                return out | {"ops": ops, "n_ops": n_ops,
-                              "q_steps": qsteps, "r_steps": rsteps}
-            return resolve
-        res = _extend_step(ref_codes, query_codes, r_start, r_size,
-                           q_start, q_size, rev, params, qt, rt, max_tb,
-                           prefix_gaps=gact.prefix_ok(params))
-        return lambda: res
-
-    def extend_tiles(self, ref_codes, query_codes, r_start, r_size, q_start,
-                     q_size, rev, params, *, qt, rt, max_tb):
-        return self.extend_tiles_async(
-            ref_codes, query_codes, r_start, r_size, q_start, q_size, rev,
-            params, qt=qt, rt=rt, max_tb=max_tb)()
-
-    def extend_tiles_spec_async(self, ref_codes, query_codes, r_start,
-                                r_size, q_start, q_size, rev, chrom_start,
-                                chrom_len, q_buf_start, q_len, params, *,
-                                qt, rt, max_tb, stop_thr):
-        """Speculative K-tile extension round over the mesh; same contract
-        as ops.dispatch.extend_tiles_spec_async."""
-        from darwin_tpu.ops import gact_pallas
-        from darwin_tpu.ops.dispatch import (SPEC_K, _make_spec_resolver,
-                                             _pack_spec_requests,
-                                             check_int16_packing,
-                                             rec_bits)
-        check_int16_packing(params, qt, rt, max_tb)
         B = int(np.asarray(r_start).shape[0])
-        K = SPEC_K
-        bits = rec_bits()
-        req_np, r_start64, q_start64 = _pack_spec_requests(
-            r_start, r_size, q_start, q_size, rev, chrom_start, chrom_len,
-            q_buf_start, q_len)
-        req = jax.device_put(req_np,
-                             NamedSharding(self.mesh, P(None, "data")))
-        ps = gact_pallas._static_params(params)
-        step = _pallas_spec_step(self.mesh, ps, qt, rt, max_tb, stop_thr,
-                                 K, bits=bits)
-        packed_dev = step(ref_codes, query_codes, req)
+        ps, impl, K, stop_thr, bits, req, r_start64, q_start64 = \
+            dispatch.round_setup(params, r_start, r_size, q_start, q_size,
+                                 rev, qt, rt, max_tb, chain)
+        static = dict(impl=impl, ps=ps, qt=qt, rt=rt, max_tb=max_tb,
+                      stop_thr=stop_thr, K=K)
+        step = _mesh_program(self.mesh, dispatch._extend_round,
+                             tuple(sorted((static | {"bits": bits})
+                                          .items())))
+        packed_dev = step(ref_codes, query_codes, self._put_cols(req))
 
         def rerun_wide(idx):
             # per-lane recovery: gather only the flagged lanes into one
-            # small single-device rerun (safe sweep + wide records) —
-            # same pattern as ops.dispatch.extend_tiles_spec_async
-            from darwin_tpu.ops.dispatch import (RECOVERY,
-                                                 _extend_round_spec_pallas,
-                                                 _subset_requests)
-            RECOVERY["rerun_dispatches"] += 1
-            RECOVERY["rerun_lanes"] += len(idx)
-            sub = _extend_round_spec_pallas(
+            # small single-device rerun with wide records — same pattern
+            # as ops.dispatch.extend_tiles_async
+            dispatch.RECOVERY["rerun_dispatches"] += 1
+            dispatch.RECOVERY["rerun_lanes"] += len(idx)
+            sub = dispatch._extend_round(
                 _local0(ref_codes), _local0(query_codes),
-                _subset_requests(req_np, idx), ps, qt, rt, max_tb,
-                stop_thr, K, safe=True, bits=16)
+                dispatch._subset_requests(req, idx), bits=16, **static)
             return sub, np.arange(len(idx))
 
-        return _make_spec_resolver(packed_dev, rerun_wide, B, K, qt,
-                                   max_tb, r_start64, q_start64, bits)
+        return dispatch._make_round_resolver(packed_dev, rerun_wide, B, K,
+                                             qt, max_tb, r_start64,
+                                             q_start64, bits)
 
     def first_tile_scores(self, ref_codes, query_codes, r_start, r_size,
                           q_start, q_size, params, *, qt, rt):
-        """Filter-stage dispatch with the tile batch genuinely sharded:
-        shard_map'd Pallas program per device (like extend_tiles), or the
-        lax path with batch-dim sharding propagated under jit — the
-        single-device dispatch.first_tile_scores would re-pack to a
-        replicated batch and compute it on every device."""
-        from darwin_tpu.ops import gact
-        from darwin_tpu.ops.dispatch import (_batch_align_scores,
-                                             _pack_requests, gather_tiles,
-                                             use_pallas_for)
-        if use_pallas_for(params):
-            from darwin_tpu.ops import gact_pallas
-            req = jax.device_put(
-                np.asarray(_pack_requests(r_start, r_size, q_start,
-                                          q_size)),
-                NamedSharding(self.mesh, P(None, "data")))
-            step = _pallas_first_tiles_step(
-                self.mesh, gact_pallas._static_params(params), qt, rt)
-            packed = step(ref_codes, query_codes, req)
-            return {"score": packed[0], "query_max_pos": packed[1],
-                    "ref_max_pos": packed[2], "packed": packed}
-        (r_start, r_size, q_start, q_size) = self._shard(
-            np.asarray(r_start, np.uint64).astype(np.uint32),
-            np.asarray(r_size, np.int32),
-            np.asarray(q_start, np.uint64).astype(np.uint32),
-            np.asarray(q_size, np.int32))
-        B = r_start.shape[0]
-        qtile, rtile = gather_tiles(ref_codes, query_codes, r_start,
-                                    r_size, q_start, q_size,
-                                    jnp.zeros((B,), bool), qt, rt)
-        return _batch_align_scores(qtile, rtile, q_size.astype(jnp.int32),
-                                   r_size.astype(jnp.int32),
-                                   jnp.zeros((B,), bool), params)
+        """Filter-stage dispatch with the tile batch sharded: the fused
+        filter program per device.  Returns the (3, B) device array."""
+        ps = gact.static_params(params)
+        step = _mesh_program(
+            self.mesh, dispatch._first_tiles_round,
+            (("impl", dispatch.tile_impl(ps, qt, rt)), ("ps", ps),
+             ("qt", qt), ("rt", rt)))
+        req = dispatch._pack_requests(r_start, r_size, q_start, q_size)
+        return step(ref_codes, query_codes, self._put_cols(req))
+
+
+def sharded_extend_tiles(mesh: Mesh, ref_codes, query_codes, r_start, r_size,
+                         q_start, q_size, rev, params, *, qt, rt, max_tb):
+    """One extension round with the tile batch sharded over the mesh and
+    the sequence buffers replicated (the batch must divide evenly over the
+    mesh).  Returns the resolved result dict."""
+    md = MeshDispatcher(mesh)
+    return md.extend_tiles_async(
+        md.put_replicated(ref_codes), md.put_replicated(query_codes),
+        r_start, r_size, q_start, q_size, rev, params, qt=qt, rt=rt,
+        max_tb=max_tb)()

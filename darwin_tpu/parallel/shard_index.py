@@ -1,9 +1,9 @@
 """Hash-range-sharded seed index (SURVEY.md §2.4 / §7 "index sharded by
 k-mer-hash range across devices, candidate hits routed with collectives").
 
-The replicated index is right whenever the table fits one HBM (yeast and
-human both do on v5e); this module is the scale-out path for genomes whose
-(hash, position) table does not.  Design:
+The replicated index is right whenever the table fits one device's memory
+(yeast and human both do on one 80 GB GPU); this module is the scale-out
+path for genomes whose (hash, position) table does not.  Design:
 
 * the SeedTable's hash-sorted arrays shard by ROWS over the mesh's data
   axis — contiguous row ranges of a hash-sorted array ARE hash ranges, so
@@ -97,8 +97,6 @@ def shard_seed_table(table, mesh: Mesh, axis: str = "data",
 def _sharded_fn(mesh: Mesh, axis: str, k, w, num_seeds, max_stride,
                 overlap, threshold, bin_size, max_occ, mq_cap, a_cap,
                 hit_cap, lut_shift, lut_steps):
-    from jax.experimental.shard_map import shard_map
-
     def step(codes2, lengths, hashes_l, pos_l, lut_l):
         offs, qhash, slot_ok = D._queried_minimizers(
             codes2, lengths, k, w, num_seeds, max_stride, overlap, mq_cap)
@@ -139,10 +137,10 @@ def _sharded_fn(mesh: Mesh, axis: str, k, w, num_seeds, max_stride,
                  ("hits_bin", "hits_off", "hits_pos", "n_hits", "anc_pos",
                   "anc_off", "anc_bin", "n_anchors", "n_anchors_raw",
                   "n_queried_buckets", "n_flat_raw", "n_capped")}
-    return jax.jit(shard_map(
+    return jax.jit(jax.shard_map(
         step, mesh=mesh,
         in_specs=(P(), P(), P(axis), P(axis), P(axis, None)),
-        out_specs=out_specs, check_rep=False))
+        out_specs=out_specs, check_vma=False))
 
 
 def dsoft_sharded(mesh: Mesh, codes2, lengths, st: ShardedSeedTable,

@@ -32,8 +32,7 @@ from darwin_tpu.seeding.seeder import Seeder
 
 # process-wide XLA compile-time accumulator: e2e artifacts report
 # compile_s so cold-batch stage times are attributable to compilation
-# without guesswork (VERDICT r4 weak #3: the 28x seed-stage gap between
-# the warm microbench and the e2e artifact had no in-artifact evidence)
+# without guesswork
 _COMPILE = {"s": 0.0, "n": 0}
 
 
@@ -92,7 +91,7 @@ class Aligner:
         (genome/read buffers replicated, zero hot-loop communication;
         parallel/shard.py).  shard_index additionally shards the seed
         table by hash range over the same mesh (for tables beyond one
-        device's HBM; parallel/shard_index.py) — bit-identical output.
+        device's memory; parallel/shard_index.py) — bit-identical output.
         index_layout: 'pairs' or 'csr' (see index/seed_table.SeedTable);
         ignored when a prebuilt table is passed."""
         self.cfg = cfg
@@ -136,12 +135,10 @@ class Aligner:
                 # 2-bit packed genome (uploaded once, memoized on the
                 # store) served DIRECTLY to the filter/extension gathers
                 # as a (packed, bounds) pair — dispatch._gather_seq
-                # extracts codes per gathered base.  4x fewer tunnel
+                # extracts codes per gathered base.  4x fewer host->device
                 # bytes than the encode5 upload AND no 1-byte-per-base
-                # device buffer at all: at 3.2 Gbp the decoded 3.2 GB
-                # next to the 7.5 GB seed table exhausted HBM (BIGREF
-                # r05 first-batch ResourceExhausted); the packed form
-                # keeps the steady set ~8.4 GB.  The large-tile margin
+                # device buffer at all (3.2 GB at 3.2 Gbp, beside the
+                # seed table).  The large-tile margin
                 # and the uint32 tail ride the boundary list as one N
                 # run, matching chunk_ref_codes' pad fill.
                 from darwin_tpu.ops import packed as PK
@@ -200,15 +197,9 @@ class Aligner:
         batch, n, res = dispatched
         if n == 0:
             return []
-        if "packed" in res:
-            # one transfer for all three result rows (the separate keys
-            # are slices of this same device array)
-            ph = np.asarray(res["packed"])
-            scores, qmax, rmax = ph[0][:n], ph[1][:n], ph[2][:n]
-        else:
-            scores = np.asarray(res["score"])[:n]
-            rmax = np.asarray(res["ref_max_pos"])[:n]
-            qmax = np.asarray(res["query_max_pos"])[:n]
+        # one transfer for all three result rows
+        ph = np.asarray(res)
+        scores, qmax, rmax = ph[0][:n], ph[1][:n], ph[2][:n]
         counters["num_extend_requests"] += int(
             (scores >= cfg.first_tile_score_threshold).sum())
         locs = flt.collect_locations(batch, scores, rmax, qmax,
@@ -291,42 +282,34 @@ class Aligner:
         return lines
 
 
-# whether a prior run() exported DARWIN_TPU_KERNEL from cfg.processor_library
-# (so a later default-config run() can clear it instead of inheriting it)
-_kernel_env_forced = False
-_kernel_env_prior = None   # the user's pre-force DARWIN_TPU_KERNEL value
+# fixed cache path inside the checkout (gitignored): the path is part of
+# the cache key, so it must not move between runs
+_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
 
 
 def enable_compile_cache():
-    """Persistent XLA compilation cache (kernel variants take ~30-60s to
-    compile each; cached binaries load in seconds).  Default
-    ~/.cache/darwin_tpu/xla; override with DARWIN_TPU_COMPILE_CACHE=DIR or
-    disable with DARWIN_TPU_COMPILE_CACHE=off."""
-    loc = os.environ.get("DARWIN_TPU_COMPILE_CACHE", "")
-    if loc.lower() == "off":
+    """Persistent XLA compilation cache: JAX_COMPILATION_CACHE_DIR when it
+    is set (JAX reads it itself; nothing else is set here), else one fixed
+    directory inside the checkout."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-    if not loc:
-        loc = os.path.expanduser("~/.cache/darwin_tpu/xla")
-    try:
-        import jax
-        os.makedirs(loc, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", loc)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass  # cache is an optimization only
-
+    import jax
+    os.makedirs(_CACHE_DIR, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
 
 
 def _resolve_mesh(mesh):
     """run()'s mesh parameter -> a jax.sharding.Mesh or None.
 
-    None/'auto' uses every local device when the backend is a real
-    multi-chip TPU host (power-of-two count) — the analog of the
-    reference's use-all-host-parallelism default
-    (software/params.cfg:41-42, 48 TBB tokens).  Virtual CPU device
-    fleets (test harnesses) stay single-device unless a mesh is requested
-    explicitly: mesh=N builds one over the first N devices; mesh='off'/0/1
-    forces single-device; a prebuilt Mesh passes through."""
+    None/'auto' uses every local device when the host has several GPUs
+    (power-of-two count) — the analog of the reference's
+    use-all-host-parallelism default (software/params.cfg:41-42, 48 TBB
+    tokens).  Virtual CPU device fleets (test harnesses) stay
+    single-device unless a mesh is requested explicitly: mesh=N builds
+    one over the first N devices; mesh='off'/0/1 forces single-device; a
+    prebuilt Mesh passes through."""
     from jax.sharding import Mesh as _Mesh
     if isinstance(mesh, _Mesh):
         return mesh
@@ -336,7 +319,7 @@ def _resolve_mesh(mesh):
     from darwin_tpu.parallel.shard import make_mesh
     if mesh in (None, "auto"):
         devs = jax.local_devices()
-        if len(devs) > 1 and devs[0].platform == "tpu":
+        if len(devs) > 1 and devs[0].platform == "gpu":
             n = 1 << (len(devs).bit_length() - 1)   # power-of-two floor
             return make_mesh(n)
         return None
@@ -357,7 +340,7 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
         index_layout: str | None = None,
         mesh=None, shard_index: bool = False,
         stats_out: dict | None = None) -> dict:
-    """pipeline_depth: read batches in flight (the TPU analog of the
+    """pipeline_depth: read batches in flight (the analog of the
     reference's token-throttled TBB flow graph, software/main.cpp:607-624);
     batch i+1's device dispatches overlap batch i's host-side decode and
     printing.  Output order and counters are deterministic — results are
@@ -372,12 +355,12 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     index of the other layout is rebuilt); None (default) accepts whatever
     layout a valid cache holds and builds 'pairs' otherwise.
 
-    mesh: single-host multi-chip — None/'auto' uses all local TPU chips
-    when more than one is present, 'off' forces one chip, N or a prebuilt
+    mesh: single-host multi-device — None/'auto' uses all local GPUs
+    when more than one is present, 'off' forces one device, N or a prebuilt
     jax.sharding.Mesh selects explicitly (see _resolve_mesh).  Output is
     bit-identical across mesh configurations (tests/test_mesh_pipeline).
     shard_index additionally hash-shards the seed table across the mesh
-    (tables beyond one chip's HBM; requires the pairs layout)."""
+    (tables beyond one device's memory; requires the pairs layout)."""
     if index_layout not in (None, "pairs", "csr"):
         raise ValueError(f"unknown index layout {index_layout!r}")
     from darwin_tpu.ops.dispatch import rec_bits
@@ -387,35 +370,23 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     err = err or sys.stderr
     cfg = cfg or Config()
     cfg.do_overlap = do_overlap
-    global _kernel_env_forced, _kernel_env_prior
-    if cfg.processor_library in ("pallas", "lax"):
-        # the reference's pluggable-kernel hook (params.cfg [FPGA]
-        # processor_library); maps to the backend selector
-        if not _kernel_env_forced:
-            _kernel_env_prior = os.environ.get("DARWIN_TPU_KERNEL")
-        os.environ["DARWIN_TPU_KERNEL"] = cfg.processor_library
-        _kernel_env_forced = True
-        from darwin_tpu.ops.dispatch import use_pallas
-        use_pallas.cache_clear()
-    elif _kernel_env_forced:
-        # a previous run() in this process forced a backend; a default
-        # config must not silently inherit it — restore whatever the
-        # user had exported before the forced run (possibly nothing)
-        if _kernel_env_prior is None:
-            os.environ.pop("DARWIN_TPU_KERNEL", None)
-        else:
-            os.environ["DARWIN_TPU_KERNEL"] = _kernel_env_prior
-        _kernel_env_forced = False
-        _kernel_env_prior = None
-        from darwin_tpu.ops.dispatch import use_pallas
-        use_pallas.cache_clear()
+    import jax
+    from darwin_tpu.ops import dispatch
+    # the reference's pluggable-kernel hook (params.cfg [FPGA]
+    # processor_library) selects the tile kernel; empty = platform default
+    dispatch.select_kernel(cfg.processor_library)
+    dev = jax.devices()[0]
+    print(f"[darwin_tpu] backend: {dev.platform} ({dev.device_kind}) x"
+          f"{len(jax.devices())}  tile kernel: {dispatch.kernel_name()}",
+          file=err)
 
     print("Loading reference genome ...", file=err)
     t0 = time.time()
     store = load_genome(ref_path)
+    load_s = time.time() - t0
     print(f"Reference length: {store.size}", file=err)
     print(f"Time elapsed (loading reference): "
-          f"{int((time.time() - t0) * 1000)} msec", file=err)
+          f"{int(load_s * 1000)} msec", file=err)
 
     print("Finalizing seed position table ...", file=err)
     t0 = time.time()
@@ -441,8 +412,9 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     if index_cache is not None and table is None:
         aligner.table.save(index_cache)
         print(f"Seed table saved to {index_cache}", file=err)
+    index_s = time.time() - t0
     print(f"Time elapsed (finalizing seed position table): "
-          f"{int((time.time() - t0) * 1000)} msec", file=err)
+          f"{int(index_s * 1000)} msec", file=err)
 
     print("Aligning reads ...", file=err)
     from darwin_tpu.ops.dispatch import RECOVERY
@@ -452,6 +424,7 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     batches = iter_read_batches(reads_path, reads_per_batch,
                                 start=start, stop=stop)
     header_done = False
+    batch_end = []     # seconds since t0 at which each batch's lines landed
 
     def merge(dst, src):
         for k, v in src.items():
@@ -472,6 +445,7 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
                     out.write(printer.sam_header(store))
                     header_done = True
                 out.writelines(lines)
+                batch_end.append(time.time() - t0)
 
             for batch in batches:
                 cnt = new_counters()
@@ -488,6 +462,7 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
                 out.write(printer.sam_header(store))
                 header_done = True
             out.writelines(lines)
+            batch_end.append(time.time() - t0)
     c = aligner.counters
     print(f"#reads: {c['num_reads']}", file=err)
     print(f"#filter tiles: {c['num_filter_tiles']}", file=err)
@@ -514,7 +489,10 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
           f"{int((time.time() - t0) * 1000)} msec", file=err)
     if stats_out is not None:
         # harness hook: per-stage timing sinks (profiling artifacts)
+        stats_out["load_seconds"] = round(load_s, 2)
+        stats_out["index_seconds"] = round(index_s, 2)
         stats_out["align_seconds"] = round(time.time() - t0, 2)
+        stats_out["batch_end_s"] = [round(x, 3) for x in batch_end]
         stats_out["stage_seconds"] = {
             k: round(v, 2) for k, v in sorted(
                 aligner.stage_seconds.items(), key=lambda kv: -kv[1])}

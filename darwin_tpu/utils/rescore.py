@@ -6,7 +6,7 @@ T field only on STRICT improvement, so whether an exact score tie between
 the diagonal and a gap lane resolves to M or I/D depends on whether the
 gap's source crosses one of the kernel's stripe boundaries
 (segLen = ceil(query/16); Processor.cpp:308-329 first-pass non-strict
-blends vs :424-431 lazy-pass strict blends).  Our TPU kernels use a
+blends vs :424-431 lazy-pass strict blends).  Our kernels use a
 column-parallel geometry with a deterministic converged-value tie chain
 (ops/oracle.py::clean_align), byte-identical to the reference everywhere
 except those stripe-geometry-dependent exact ties — where both paths

@@ -1,7 +1,7 @@
 """Repeat-structured synthetic genome generator.
 
-The environment has no network egress, so the BASELINE.json real-data
-configs (E. coli K-12 PacBio, human chr21 ONT) cannot be fetched; what a
+The environment has no network egress, so real-data sets (E. coli K-12
+PacBio, human chr21 ONT) cannot be fetched; what a
 uniform-random synthetic genome misses about them is REPEAT STRUCTURE —
 the skewed seed-bucket occupancy that drives D-SOFT's kmer_max_occurence
 cap (/root/reference/software/seed_pos_table.cpp:55,314) and the decoy

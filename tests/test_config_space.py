@@ -1,17 +1,19 @@
 """Non-default scoring configurations vs the oracle.
 
-All golden tests run the default params.cfg scores; the kernels bake the
-substitution matrix and gap scores in (the Pallas kernel statically), so a
-config-space sweep is the only thing standing between a wiring mistake and
-silently wrong output for users with custom params.cfg files.
+All golden tests run the default params.cfg scores; the fused dispatch
+rounds bake the substitution matrix and gap scores in as static
+constants, so a config-space sweep is the only thing standing between a
+wiring mistake and silently wrong output for users with custom params.cfg
+files.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
 from darwin_tpu.config import Config
-from darwin_tpu.ops import gact, gact_pallas, oracle as orc
+from darwin_tpu.ops import gact, records, oracle as orc
 from tests.conftest import mutate, random_codes
 from tests.test_gact_device import _make_batch
 
@@ -24,6 +26,25 @@ CONFIGS = [
     # heavy long-gap regime
     ((2, -6, -6, -6, 2, -6, -6, 2, -6, 2, -1), -10, -8, -12, -1),
 ]
+
+
+def _round_tiles(args, params, max_tb):
+    """The fused round's tile functions (static scoring, records folded on
+    the device) on the same batch, with the records expanded to ops: the
+    max-cell filter tiles' score and the end-cell extension tiles' walk."""
+    q, r, ql, rl, se = args[:5]
+    ps = gact.static_params(params)
+    fs = jax.jit(gact.filter_scores, static_argnums=4)(q, r, ql, rl, ps)
+    es, rec, _, _ = jax.jit(gact.extend_records, static_argnums=(4, 5))(
+        q, r, ql, rl, ps, max_tb)
+    se = np.asarray(se)
+    score = np.where(se, np.asarray(es), np.asarray(fs[0]))
+    ops, n_ops = records.expand_records(np.asarray(rec), len(se),
+                                        q.shape[1] + r.shape[1])
+    # max-cell tiles walk from the max cell, which the extension tiles'
+    # end-cell walk does not: compare walks on start_end tiles only
+    return {"score": score, "ops": ops,
+            "n_ops": np.where(se, n_ops, -1)}
 
 
 @pytest.mark.parametrize("idx", range(len(CONFIGS)))
@@ -42,8 +63,7 @@ def test_custom_scoring_matches_oracle(rng, idx):
             jnp.asarray(rlens), jnp.asarray(start_end), params)
 
     lax_res = gact.align_and_traceback(*args, 2 * QT)
-    pal_res = gact_pallas.align_and_traceback(*args, 2 * QT,
-                                              interpret=True)
+    pal_res = _round_tiles(args, params, 2 * QT)
     for b in range(B):
         ref = orc.align_with_traceback(
             qcodes[b, :qlens[b]], rcodes[b, :rlens[b]], SUB,
@@ -53,8 +73,9 @@ def test_custom_scoring_matches_oracle(rng, idx):
         n = int(lax_res["n_ops"][b])
         assert n == len(ref["ops"]), (idx, b)
         assert list(np.asarray(lax_res["ops"])[b, :n]) == ref["ops"], (idx, b)
-        assert int(pal_res["n_ops"][b]) == n, (idx, b)
-        assert list(np.asarray(pal_res["ops"])[b, :n]) == ref["ops"], (idx, b)
+        if start_end[b]:
+            assert int(pal_res["n_ops"][b]) == n, (idx, b)
+            assert list(pal_res["ops"][b, :n]) == ref["ops"], (idx, b)
 
 
 # generic-domain scorings (open cheaper than extend on one or both lanes)
@@ -70,10 +91,10 @@ GENERIC_CONFIGS = [
 def test_open_cheaper_than_extend_generic_path(rng, gaps):
     """gap_open > gap_extend invalidates the prefix-max gap scan; such
     scorings (the reference accepts any, software/Processor.cpp:48-80) run
-    the generic closed-form path in BOTH kernels — the lax kernel's
-    max-plus associative scan and the Pallas kernel's shared-p3 scan
-    (gact_pallas._dp_kernel `generic` branch) — and must match the
-    oracle's coupled recurrence exactly."""
+    the generic max-plus associative scan — in the serial-walker path and
+    in the fused round's tile functions (which the CUDA kernels route to
+    the plain path, gact_cuda.supports) — and must match the oracle's
+    coupled recurrence exactly."""
     cfg = Config()
     cfg.gap_open, cfg.gap_extend = gaps[0], gaps[1]
     cfg.long_gap_open, cfg.long_gap_extend = gaps[2], gaps[3]
@@ -86,7 +107,7 @@ def test_open_cheaper_than_extend_generic_path(rng, gaps):
     args = (jnp.asarray(qcodes), jnp.asarray(rcodes), jnp.asarray(qlens),
             jnp.asarray(rlens), jnp.asarray(start_end), params)
     res = gact.align_and_traceback(*args, 2 * QT)
-    pal = gact_pallas.align_and_traceback(*args, 2 * QT, interpret=True)
+    pal = _round_tiles(args, params, 2 * QT)
     for b in range(B):
         ref = orc.align_with_traceback(
             qcodes[b, :qlens[b]], rcodes[b, :rlens[b]], SUB,
@@ -97,32 +118,31 @@ def test_open_cheaper_than_extend_generic_path(rng, gaps):
         assert n == len(ref["ops"]), b
         assert list(np.asarray(res["ops"])[b, :n]) == ref["ops"], b
         assert int(pal["score"][b]) == ref["score"], b
-        assert int(pal["n_ops"][b]) == n, b
-        assert list(np.asarray(pal["ops"])[b, :n]) == ref["ops"], b
+        if start_end[b]:
+            assert int(pal["n_ops"][b]) == n, b
+            assert list(pal["ops"][b, :n]) == ref["ops"], b
 
 
-def test_generic_strip_kernel_matches_lax(rng):
-    """Large-tile (strip-kernel) geometry under a generic scoring: the
-    p3m carry must reproduce the cross-strip prefix exactly."""
+def test_generic_large_tile_round_matches_walker(rng):
+    """Large-tile (escalation) geometry under a generic scoring through the
+    fused round's tile function: records folded on the device must expand
+    to the serial walker's ops."""
     cfg = Config()
     cfg.gap_open, cfg.gap_extend = -1, -5
     cfg.long_gap_open, cfg.long_gap_extend = -3, -9
     params = gact.make_params(cfg)
 
-    B, QT, RT = 4, 640, 96      # QT > 512 -> strip path, 2 strips
+    B, QT, RT = 4, 640, 96
     qcodes, rcodes, qlens, rlens, _ = _make_batch(rng, B, QT, RT)
-    qlens = np.maximum(qlens, 520)    # cross the strip boundary
+    qlens = np.maximum(qlens, 520)
     start_end = np.ones(B, bool)
     args = (jnp.asarray(qcodes), jnp.asarray(rcodes), jnp.asarray(qlens),
             jnp.asarray(rlens), jnp.asarray(start_end), params)
-    lax_res = gact.batch_align(*args, with_trace=True, all_start_end=True)
-    pal_res = gact_pallas.batch_align(*args, all_start_end=True,
-                                      interpret=True)
-    assert np.array_equal(np.asarray(lax_res["score"]),
-                          np.asarray(pal_res["score"]))
-    # trace layouts differ: lax (RT, B, QT) vs pallas (RT, QT, B)
-    lt = np.asarray(lax_res["trace"])
-    pt = np.asarray(pal_res["trace"]).transpose(0, 2, 1)
+    lax_res = gact.align_and_traceback(*args, 2 * QT, all_start_end=True)
+    pal_res = _round_tiles(args, params, 2 * QT)
+    assert np.array_equal(np.asarray(lax_res["score"]), pal_res["score"])
     for b in range(B):
-        assert np.array_equal(lt[:rlens[b], b, :qlens[b]],
-                              pt[:rlens[b], b, :qlens[b]]), b
+        n = int(lax_res["n_ops"][b])
+        assert int(pal_res["n_ops"][b]) == n, b
+        assert np.array_equal(np.asarray(lax_res["ops"])[b, :n],
+                              pal_res["ops"][b, :n]), b

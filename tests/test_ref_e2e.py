@@ -5,8 +5,8 @@ both output modes, default params.cfg, diverse reads including
 structural-variant reads that force the large-tile escalation path.
 
 This upgrades the golden tests from self-locked to reference-locked: the
-kernel-level fuzz (test_ref_parity.py) plus this file cover the
-BASELINE.json correctness bar end-to-end.
+kernel-level fuzz (test_ref_parity.py) plus this file cover byte identity
+with the reference end-to-end at the default params.cfg.
 
 Skipped automatically on hosts without g++/AVX2.
 """

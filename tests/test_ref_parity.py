@@ -58,8 +58,8 @@ TIE_RICH_SCORINGS = [
 # optimum (measured: ~half of fuzzed tiles).  striped_align reproduces
 # that artifact exactly; the production kernels compute the exact
 # two-piece recurrence instead (scores >= the reference's) — documented
-# in docs/ARCHITECTURE.md, out of scope for byte-identity (the
-# BASELINE.json bar is the default params.cfg).
+# in docs/ARCHITECTURE.md, out of scope for byte-identity (which is
+# required at the default params.cfg).
 GENERIC_SCORINGS = [
     ("generic", [2, -6, -6, -6, 2, -6, -6, 2, -6, 2, -1, -1, -5, -3, -9]),
 ]

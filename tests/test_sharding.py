@@ -6,7 +6,7 @@ import jax.numpy as jnp
 
 from darwin_tpu.config import Config
 from darwin_tpu.ops import gact
-from darwin_tpu.ops.dispatch import extend_tiles
+from darwin_tpu.ops.dispatch import extend_tiles_async
 from darwin_tpu.parallel.shard import make_mesh, sharded_extend_tiles
 
 
@@ -23,11 +23,9 @@ def test_sharded_extend_matches_single(rng):
     q_size = rng.integers(1, qt + 1, size=B).astype(np.int32)
     rev = (np.arange(B) % 2 == 1)
 
-    single = extend_tiles(jnp.asarray(ref), jnp.asarray(qry),
-                          jnp.asarray(r_start), jnp.asarray(r_size),
-                          jnp.asarray(q_start), jnp.asarray(q_size),
-                          jnp.asarray(rev), params, qt=qt, rt=rt,
-                          max_tb=2 * qt)
+    single = extend_tiles_async(jnp.asarray(ref), jnp.asarray(qry),
+                                r_start, r_size, q_start, q_size, rev,
+                                params, qt=qt, rt=rt, max_tb=2 * qt)()
     mesh = make_mesh(8)
     shard = sharded_extend_tiles(mesh, ref, qry, r_start, r_size, q_start,
                                  q_size, rev, params, qt=qt, rt=rt,

@@ -1,16 +1,13 @@
-"""CPU coverage of the TPU-only fused dispatch path (interpret mode).
+"""The fused extension round's host protocol: speculative chains, result
+packing, compact records and their lossless wide reruns, on one device and
+on a mesh.
 
-On hardware the extension loop runs through the fused Pallas dispatch
-programs (ops/dispatch.py::_extend_round_pallas / _extend_round_spec_pallas:
-gather + DP + sweep + packed int16 results + K-tile speculative chains).
-CPU test runs normally bypass all of that — use_pallas() is False off-TPU —
-so until now those programs were only exercised by the on-chip smoke gate.
-DARWIN_TPU_PALLAS_INTERPRET=1 runs the same dispatch programs with their
-Pallas kernels in interpret mode, giving the speculative chain, the result
-packing, and the rerun paths byte-level coverage without a chip.
-
-The oracle is the lax backend, itself locked to the reference binary
-byte-for-byte (tests/test_ref_e2e.py)."""
+Every platform runs the extension loop through the fused round programs
+(ops/dispatch.py::_extend_round: gather + DP + traceback records + packed
+int16 results + K-tile speculative chains), so the CPU tests exercise the
+same protocol the GPU runs, with the plain tile implementation.  The
+reference point is the same pipeline without speculation (SPEC_K = 1),
+byte for byte."""
 
 import numpy as np
 import pytest
@@ -25,16 +22,10 @@ BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
 @pytest.fixture(autouse=True)
-def _interpret_env(monkeypatch):
-    monkeypatch.setenv("DARWIN_TPU_PALLAS_INTERPRET", "1")
-    # bound the interpret-mode work per dispatch; resolver correctness is
-    # K-invariant by construction (levels accepted only on request match)
+def _short_chains(monkeypatch):
+    # bound the work per dispatch; resolver correctness is K-invariant by
+    # construction (levels accepted only on request match)
     monkeypatch.setattr(dispatch, "SPEC_K", 4)
-    yield
-    # the kernel-selection memo was poisoned with the forced backend;
-    # clear it after monkeypatch restores the env (nothing reads it in
-    # between — teardown here runs before the monkeypatch finalizer)
-    dispatch.use_pallas.cache_clear()
 
 
 def _mutate(rng, frag):
@@ -63,8 +54,8 @@ def tiny_workload(tmp_path, rng):
 
 
 def _small_cfg():
-    # small tiles keep interpret-mode cost low while still producing
-    # multi-tile extensions (and therefore speculative chains)
+    # small tiles keep the CPU cost low while still producing multi-tile
+    # extensions (and therefore speculative chains)
     cfg = Config()
     cfg.tile_size = 64
     cfg.tile_overlap = 16
@@ -73,9 +64,8 @@ def _small_cfg():
     return cfg
 
 
-def _align(ref_path, reads, backend, monkeypatch):
-    monkeypatch.setenv("DARWIN_TPU_KERNEL", backend)
-    dispatch.use_pallas.cache_clear()
+def _align(ref_path, reads, spec_k, monkeypatch):
+    monkeypatch.setattr(dispatch, "SPEC_K", spec_k)
     store = load_genome(ref_path)
     aligner = Aligner(_small_cfg(), store)
     cnt = new_counters()
@@ -128,8 +118,6 @@ def _res_equal(a, b):
 def test_rec_overflow_rerun(rng, monkeypatch, bits):
     """Compact-record overflow (insert run wider than the nI field) must
     be detected and rerun losslessly through the wide layout."""
-    monkeypatch.setenv("DARWIN_TPU_KERNEL", "pallas")
-    dispatch.use_pallas.cache_clear()
     from darwin_tpu.ops.oracle import OP_I
 
     refc, qc, r_start, r_size, q_start, q_size, rev, params = \
@@ -167,9 +155,6 @@ def test_rec_overflow_spec_chain(rng, monkeypatch, bits):
     """The speculative resolver's per-level patching of flagged lanes:
     compact + overflow must equal the wide layout on every level, the
     tile-1 stats, and the reconstructed speculative requests."""
-    monkeypatch.setenv("DARWIN_TPU_KERNEL", "pallas")
-    dispatch.use_pallas.cache_clear()
-
     refc, qc, r_start, r_size, q_start, q_size, rev, params = \
         _overflow_case(rng)
     chrom_start = np.zeros(128, np.int64)
@@ -178,10 +163,10 @@ def test_rec_overflow_spec_chain(rng, monkeypatch, bits):
     q_len = np.asarray(q_size, np.int64)
 
     def run():
-        return dispatch.extend_tiles_spec_async(
-            refc, qc, r_start, r_size, q_start, q_size, rev, chrom_start,
-            chrom_len, q_buf_start, q_len, params,
-            qt=256, rt=256, max_tb=512, stop_thr=192)()
+        return dispatch.extend_tiles_async(
+            refc, qc, r_start, r_size, q_start, q_size, rev, params,
+            qt=256, rt=256, max_tb=512,
+            chain=(chrom_start, chrom_len, q_buf_start, q_len, 192))()
 
     monkeypatch.setenv("DARWIN_TPU_RECBITS", "16")
     wide = run()
@@ -190,10 +175,10 @@ def test_rec_overflow_spec_chain(rng, monkeypatch, bits):
     _res_equal(wide, compact)
 
 
-def test_mesh_pallas_dispatch_identity(rng, monkeypatch):
-    """The shard_map'd fused dispatch path (per-device speculative chains,
-    compact records, whole-batch wide reruns) against the single-device
-    lax pipeline, on a 2-device virtual mesh in interpret mode."""
+def test_mesh_fused_dispatch_identity(rng, monkeypatch):
+    """The shard_map'd fused round (per-device speculative chains,
+    compact records) against the single-device pipeline without
+    speculation, on a 2-device virtual mesh."""
     from darwin_tpu.genome import GenomeStore
     from darwin_tpu.parallel.shard import make_mesh
     from darwin_tpu.utils.simulate import simulate_reads
@@ -208,12 +193,10 @@ def test_mesh_pallas_dispatch_identity(rng, monkeypatch):
     sim = simulate_reads(store, 3, 800, seed=7)
     reads = [make_read(n, s) for n, s, _ in sim]
 
-    monkeypatch.setenv("DARWIN_TPU_KERNEL", "lax")
-    dispatch.use_pallas.cache_clear()
+    monkeypatch.setattr(dispatch, "SPEC_K", 1)
     single = Aligner(cfg, store).align_batch(reads)
 
-    monkeypatch.setenv("DARWIN_TPU_KERNEL", "pallas")
-    dispatch.use_pallas.cache_clear()
+    monkeypatch.setattr(dispatch, "SPEC_K", 4)
     cnt = new_counters()
     meshed = Aligner(cfg, store, mesh=make_mesh(2)).align_batch(reads, cnt)
 
@@ -224,16 +207,17 @@ def test_mesh_pallas_dispatch_identity(rng, monkeypatch):
 
 def test_spec_dispatch_byte_identity(tiny_workload, monkeypatch):
     ref_path, reads = tiny_workload
-    lax_lines, lax_cnt = _align(ref_path, reads, "lax", monkeypatch)
-    pl_lines, pl_cnt = _align(ref_path, reads, "pallas", monkeypatch)
+    lax_lines, lax_cnt = _align(ref_path, reads, 1, monkeypatch)
+    pl_lines, pl_cnt = _align(ref_path, reads, 4, monkeypatch)
 
     assert lax_cnt["num_extend_tiles"] > 0          # workload is non-trivial
+    assert lax_cnt["num_spec_hits"] + lax_cnt["num_spec_misses"] == 0
     assert pl_lines == lax_lines                    # byte-identical SAM
-    # the speculative chain actually ran (and mostly hit) on the fused path
+    # the speculative chain actually ran (and mostly hit)
     trials = pl_cnt["num_spec_hits"] + pl_cnt["num_spec_misses"]
     assert trials > 0
     assert pl_cnt["num_spec_hits"] > 0
-    # the reference-visible work counters agree across backends
+    # the reference-visible work counters agree with and without chains
     for key in ("num_filter_tiles", "num_extend_requests",
                 "num_slope_filtered", "num_extend_tiles",
                 "num_active_tiles", "num_large_tiles"):
@@ -242,13 +226,10 @@ def test_spec_dispatch_byte_identity(tiny_workload, monkeypatch):
 
 @pytest.mark.parametrize("spec", [False, True])
 def test_mesh_per_lane_rerun(rng, monkeypatch, spec):
-    """Mesh-path spill recovery is per-lane: exactly the flagged lanes
-    (here 2 of 256) rerun through one small single-device safe+wide
-    program, and the patched results equal the wide layout."""
+    """Mesh-path overflow recovery is per-lane: exactly the flagged lanes
+    (here 2 of 256) rerun through one small single-device wide program,
+    and the patched results equal the wide layout."""
     from darwin_tpu.parallel.shard import MeshDispatcher, make_mesh
-
-    monkeypatch.setenv("DARWIN_TPU_KERNEL", "pallas")
-    dispatch.use_pallas.cache_clear()
 
     refc, qc, r_start, r_size, q_start, q_size, rev, params = \
         _overflow_case(rng)
@@ -275,10 +256,10 @@ def test_mesh_per_lane_rerun(rng, monkeypatch, spec):
             chrom_len = np.full(256, 192, np.int64)
             q_buf_start = np.zeros(256, np.int64)
             q_len = np.asarray(q_size, np.int64)
-            return md.extend_tiles_spec_async(
-                refc, qc, r_start, r_size, q_start, q_size, rev,
-                chrom_start, chrom_len, q_buf_start, q_len, params,
-                qt=256, rt=256, max_tb=512, stop_thr=192)()
+            return md.extend_tiles_async(
+                refc, qc, r_start, r_size, q_start, q_size, rev, params,
+                qt=256, rt=256, max_tb=512,
+                chain=(chrom_start, chrom_len, q_buf_start, q_len, 192))()
         return md.extend_tiles_async(
             refc, qc, r_start, r_size, q_start, q_size, rev, params,
             qt=256, rt=256, max_tb=512)()

@@ -6,7 +6,7 @@ on STRICT improvement (Processor.cpp:424-431), while its first pass
 blends non-strictly (:308-329) — so an exact score tie between the
 diagonal and a gap lane resolves differently depending on whether the
 gap's source crosses one of the kernel's 16-lane stripe boundaries.
-That geometry has no analog in a TPU column kernel; our production
+That geometry has no analog in a column-parallel kernel; our production
 kernels follow the deterministic converged-value chain of
 oracle.clean_align instead.  This test pins the whole contract on a
 real divergent tile found by tools/fuzz_ref_e2e.py (yeast genome,

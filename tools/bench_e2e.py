@@ -28,8 +28,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from darwin_tpu.utils.platform import force_platform_from_env
-force_platform_from_env()
 
 REPS = 2
 

@@ -1,11 +1,11 @@
 """Scaling-efficiency harness: reads/s through the full pipeline at
-several mesh sizes (BASELINE.json: >=80% efficiency 1 chip -> N).
+several mesh sizes.
 
-On real multi-chip hardware this measures true scaling.  In this
-environment only ONE real chip exists, so mesh sizes > 1 run on a virtual
-CPU-device mesh — that validates the sharded path end-to-end and records
-*functional* numbers, but virtual devices share the same host cores, so
-efficiency there is not hardware-predictive (the JSON marks this).
+On a multi-GPU host this measures true scaling.  With JAX_PLATFORMS=cpu the
+mesh sizes run on a virtual CPU-device mesh — that validates the sharded
+path end-to-end and records *functional* numbers, but virtual devices share
+the same host cores, so efficiency there is not hardware-predictive (the
+JSON marks this).
 
 Usage: python tools/bench_scale.py [--sizes 1,2,8] [--out SCALE.json]
 """
@@ -14,8 +14,6 @@ Usage: python tools/bench_scale.py [--sizes 1,2,8] [--out SCALE.json]
 import os as _os
 import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-from darwin_tpu.utils.platform import force_platform_from_env
-force_platform_from_env()
 import argparse
 import json
 import time
@@ -30,18 +28,14 @@ def main():
     ap.add_argument("--reads", type=int, default=64)
     ap.add_argument("--read-len", type=int, default=5000)
     ap.add_argument("--genome", type=int, default=2_000_000)
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"],
-                    help="cpu = virtual mesh (functional scaling); tpu = "
-                    "real chips when a multi-chip slice is attached")
     args = ap.parse_args()
     sizes = [int(s) for s in args.sizes.split(",")]
 
     import jax
     n_virtual = max(sizes)
-    if args.platform == "cpu":
-        # must happen before any backend touch
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", n_virtual)
+    # with JAX_PLATFORMS=cpu: a virtual mesh (functional scaling); on a
+    # multi-GPU host: the real cards
+    jax.config.update("jax_num_cpu_devices", n_virtual)
     virtual = jax.devices()[0].platform == "cpu"
     if len(jax.devices()) < n_virtual:
         raise SystemExit(f"need {n_virtual} devices, have "

@@ -5,7 +5,7 @@ all-vs-all overlap of a long-read set, reads-as-index).
 Simulates N reads x L bp at ~`coverage`x depth from a synthetic genome,
 runs overlap mode end-to-end (the reads file is BOTH the index and the
 query stream), and records reads/s, peak RSS, and output volume into
-DENOVO_r03.json.  Optionally spot-verifies the MHAP output byte-identical
+denovo.json.  Optionally spot-verifies the MHAP output byte-identical
 against the compiled reference binary on a read subsample
 (--check-subsample N; uses tests/ref_binary.py).
 
@@ -24,8 +24,6 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-from darwin_tpu.utils.platform import force_platform_from_env
-force_platform_from_env()
 
 
 
@@ -37,7 +35,7 @@ def main():
     ap.add_argument("--coverage", type=float, default=8.0)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--check-subsample", type=int, default=0)
-    ap.add_argument("--out", default="DENOVO_r05.json")
+    ap.add_argument("--out", default="denovo.json")
     ap.add_argument("--workdir", default="/tmp/denovo_e2e")
     args = ap.parse_args()
 

@@ -5,14 +5,12 @@ Each iteration simulates a fresh read set (mixed lengths, occasional
 structural-variant reads that force large-tile escalation), runs the
 COMPLETE reference binary (tests/ref_binary.py shim build) and this
 framework's CLI under the same cwd/params.cfg, and asserts identical
-stdout.  --backend pallas-interpret routes our side through the fused
-TPU dispatch programs (speculative chains, compact records, wide reruns)
-with the Pallas kernels in interpret mode, so the production dispatch
-path itself is fuzzed against the reference without a chip.
+stdout.  Our side runs the production fused dispatch rounds (speculative
+chains, compact records, wide reruns) on whatever device JAX runs on.
 
 Usage:
     JAX_PLATFORMS=cpu python tools/fuzz_ref_e2e.py \
-        [--iters 20] [--mode both] [--backend lax|pallas-interpret]
+        [--iters 20] [--mode both] [--scoring default|generic]
         [--seed0 1000] [--workdir /tmp/fuzz_ref]
 
 Prints one JSON line; exit 0 = every iteration byte-identical.
@@ -29,9 +27,7 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
-from darwin_tpu.utils.platform import force_platform_from_env  # noqa: E402
 
-force_platform_from_env()
 
 import numpy as np  # noqa: E402
 
@@ -64,29 +60,18 @@ def _our_cli(ref_path, reads_path, overlap, cwd):
     return buf.getvalue()
 
 
-def _make_reads(store, rng, interpret: bool):
+def _make_reads(store, rng):
     from darwin_tpu.utils.simulate import simulate_reads
-    # interpret-mode kernels execute each grid step eagerly (~100x slower
-    # than compiled) — keep those iterations tiny (~2-5 min each; prefer
-    # --iters 1..3, or the equivalent-but-fast composition: the lax
-    # backend is fuzzed against the reference here, and the fused Pallas
-    # dispatch is locked byte-identical to lax by tests/test_spec_dispatch)
-    n = int(rng.integers(2, 4) if interpret else rng.integers(6, 14))
-    max_len = 900 if interpret else 9000
+    n = int(rng.integers(6, 14))
     reads = []
     seed = int(rng.integers(0, 2**31))
-    lengths = rng.integers(600, max_len, size=n)
-    # interpret mode: low error keeps 1984-wide large-tile escalations
-    # (minutes each under interpret kernels) rare; the lax runs keep the
-    # default long-read error profile
-    error = (0.015, 0.01, 0.01) if interpret else (0.04, 0.03, 0.03)
+    lengths = rng.integers(600, 9000, size=n)
     for i, (nm, s, _) in enumerate(
             simulate_reads(store, n, int(lengths.max()), seed=seed,
-                           error=error)):
+                           error=(0.04, 0.03, 0.03))):
         reads.append((f"r{i}_{nm}", s[:int(lengths[i])]))
-    # SV reads force 1984-wide large-tile escalation — far too slow for
-    # interpret-mode kernels, so only the compiled (lax) runs get them
-    if not interpret and rng.random() < 0.5:
+    # SV reads force 1984-wide large-tile escalation
+    if rng.random() < 0.5:
         s0 = int(store.chromosomes[0].start) + int(rng.integers(0, 150000))
         left = int(rng.integers(1200, 2500))
         gap = int(rng.integers(600, 1500))
@@ -105,8 +90,6 @@ def main():
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--mode", choices=("sam", "mhap", "both"),
                     default="both")
-    ap.add_argument("--backend", choices=("lax", "pallas-interpret"),
-                    default="lax")
     ap.add_argument("--seed0", type=int, default=1000)
     ap.add_argument("--scoring", choices=("default", "generic"),
                     default="default",
@@ -115,36 +98,22 @@ def main():
                          "re-opening chains there (lazy-loop early exit, "
                          "tests/test_ref_parity.py GENERIC_SCORINGS note), "
                          "so the baseline switches from the reference "
-                         "binary to our own lax backend: the run checks "
-                         "that the pallas dispatch path reproduces the "
-                         "lax path byte-for-byte under the generic "
-                         "closed form (requires --backend "
-                         "pallas-interpret)")
+                         "binary to our own pipeline without speculation "
+                         "(SPEC_K = 1): the run checks that the "
+                         "speculative fused rounds reproduce it "
+                         "byte-for-byte under the generic scan")
     ap.add_argument("--workdir", default="/tmp/fuzz_ref")
     args = ap.parse_args()
 
-    interpret = args.backend == "pallas-interpret"
-    if args.scoring == "generic" and not interpret:
-        ap.error("--scoring generic needs --backend pallas-interpret "
-                 "(the reference binary is not a valid generic baseline)")
-    if interpret:
-        os.environ["DARWIN_TPU_PALLAS_INTERPRET"] = "1"
-        os.environ["DARWIN_TPU_KERNEL"] = "pallas"
-        # bound the interpret-mode work per dispatch; identity is
-        # K-invariant by construction
-        os.environ.setdefault("DARWIN_TPU_SPEC_K", "4")
-    else:
-        os.environ["DARWIN_TPU_KERNEL"] = "lax"
-
     import ref_binary as rb
     from darwin_tpu.io.fasta import load_genome
-    from darwin_tpu.ops.dispatch import use_pallas
+    from darwin_tpu.ops import dispatch
 
-    def with_backend(backend):
-        os.environ["DARWIN_TPU_KERNEL"] = backend
-        use_pallas.cache_clear()
+    spec_k = dispatch.SPEC_K
 
-    use_pallas.cache_clear()
+    def with_spec(k):
+        dispatch.SPEC_K = k
+
     if args.scoring != "generic":
         rb.build()
     store = load_genome(REF)
@@ -155,17 +124,6 @@ def main():
         for key, val in (("gap_open", "-1"), ("gap_extend", "-5"),
                          ("long_gap_open", "-3"),
                          ("long_gap_extend", "-9")):
-            cfg_text = re.sub(rf"(?m)^{key}\s*=.*$", f"{key} = {val}",
-                              cfg_text)
-    if interpret:
-        # interpret-mode kernels are ~100x slower than compiled ones;
-        # small tiles keep an iteration in seconds while exercising the
-        # same dispatch machinery (identity must hold for ANY params.cfg)
-        for key, val in (("first_tile_size", "32"),
-                         ("first_tile_score_threshold", "20"),
-                         ("tile_size", "64"),
-                         ("tile_overlap", "16"),
-                         ("min_overlap", "400")):
             cfg_text = re.sub(rf"(?m)^{key}\s*=.*$", f"{key} = {val}",
                               cfg_text)
     open(os.path.join(args.workdir, "params.cfg"), "w").write(cfg_text)
@@ -180,17 +138,18 @@ def main():
     cascades = 0
     for it in range(args.iters):
         rng = np.random.default_rng(args.seed0 + it)
-        reads = _make_reads(store, rng, interpret)
+        reads = _make_reads(store, rng)
         fa = os.path.join(args.workdir, f"reads_{it}.fa")
         _write_fa(fa, reads)
         modes = {"sam": [False], "mhap": [True],
                  "both": [False, True]}[args.mode]
         for overlap in modes:
             if args.scoring == "generic":
-                # baseline = our own lax backend (see --scoring help)
-                with_backend("lax")
+                # baseline = our own pipeline without speculation (see
+                # --scoring help)
+                with_spec(1)
                 ref_out = _our_cli(REF, fa, overlap, args.workdir)
-                with_backend("pallas")
+                with_spec(spec_k)
                 our_out = _our_cli(REF, fa, overlap, args.workdir)
             else:
                 ref_out = rb.run(REF, fa, overlap, args.workdir)
@@ -198,9 +157,9 @@ def main():
             if ref_out == our_out:
                 continue
             if args.scoring == "generic":
-                # our own two backends must agree EXACTLY — the
+                # our own two pipelines must agree EXACTLY — the
                 # stripe-tie rationale applies only vs the reference
-                cls = {"hard": [("backends differ", "")],
+                cls = {"hard": [("spec on/off differ", "")],
                        "tie_equivalent": 0}
             else:
                 # adjudicate: the reference's stripe-geometry tie-breaks
@@ -233,7 +192,7 @@ def main():
                      "w").write(our_out)
                 print(json.dumps({
                     "ok": False, "iter": it, "mode": tag,
-                    "backend": args.backend, "reads_fa": fa,
+                    "spec_k": spec_k, "reads_fa": fa,
                     "hard_mismatches": len(cls["hard"]),
                     "workdir": args.workdir}))
                 return 1
@@ -244,7 +203,7 @@ def main():
         done += 1
         print(f"iter {it} ok ({time.time() - t0:.0f}s)", file=sys.stderr)
     print(json.dumps({"ok": True, "iters": done, "mode": args.mode,
-                      "backend": args.backend, "scoring": args.scoring,
+                      "spec_k": spec_k, "scoring": args.scoring,
                       "tie_equivalent_lines": ties,
                       "tie_cascades": cascades,
                       "seconds": round(time.time() - t0, 1)}))

@@ -1,7 +1,7 @@
-"""Realistic-data artifact (REALDATA_r05): repeat-structured genome +
+"""Realistic-data artifact: repeat-structured genome +
 ONT-like reads, guided and overlap configs.
 
-BASELINE.json's real-data configs (E. coli K-12 PacBio, human chr21 ONT)
+Real-data configs (E. coli K-12 PacBio, human chr21 ONT)
 cannot be fetched here (no egress; the reference repo's own reads file is
 a stripped blob, /root/reference/.MISSING_LARGE_BLOBS).  This harness
 substitutes the property those datasets actually stress: repeat structure
@@ -18,8 +18,6 @@ import os as _os
 import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 _sys.path.insert(0, _os.path.dirname(_os.path.abspath(__file__)))
-from darwin_tpu.utils.platform import force_platform_from_env
-force_platform_from_env()
 
 import argparse
 import json
@@ -34,7 +32,7 @@ def main():
     ap.add_argument("--reads", type=int, default=512)
     ap.add_argument("--overlap-reads", type=int, default=1024)
     ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--out", default="REALDATA_r05.json")
+    ap.add_argument("--out", default="realdata.json")
     args = ap.parse_args()
 
     from darwin_tpu.config import Config

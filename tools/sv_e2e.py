@@ -1,6 +1,4 @@
-"""SV-dense workload: fire the large-tile escalation path at scale
-(VERDICT r4 ask #7 — num_large_tiles was 0 in every at-scale artifact;
-the 1984x960 strip path had only unit fixtures).
+"""SV-dense workload: fire the large-tile escalation path at scale.
 
 Reads are split-alignments: left segment + a skipped reference gap
 (600-1500 bp deletion relative to the reference) + right segment.  The
@@ -10,7 +8,7 @@ beyond the gap — exactly the escalation trigger
 (/root/reference/software/extender.cpp:353-394) — and the 1984x960 large
 tile oriented by the gap direction bridges it.
 
-Artifact: SV_r05.json with num_large_tiles > 0, correct-locus stats, a
+Artifact: sv.json with num_large_tiles > 0, correct-locus stats, a
 stage table, and a read subsample byte-compared against the compiled
 reference binary (same cwd/params.cfg).
 
@@ -21,8 +19,6 @@ import os as _os
 import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 _sys.path.insert(0, _os.path.dirname(_os.path.abspath(__file__)))
-from darwin_tpu.utils.platform import force_platform_from_env
-force_platform_from_env()
 
 import argparse
 import json
@@ -68,7 +64,7 @@ def main():
     ap.add_argument("--reads", type=int, default=256)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--check-subsample", type=int, default=48)
-    ap.add_argument("--out", default="SV_r05.json")
+    ap.add_argument("--out", default="sv.json")
     ap.add_argument("--workdir", default="/tmp/sv_e2e")
     args = ap.parse_args()
 

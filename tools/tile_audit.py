@@ -22,9 +22,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
-from darwin_tpu.utils.platform import force_platform_from_env  # noqa: E402
 
-force_platform_from_env()
 
 import numpy as np  # noqa: E402
 
@@ -61,18 +59,17 @@ def audit(ref_fa: str, reads_fa: str, cfg, batch: int = 128,
 
     cfg = copy.deepcopy(cfg)
     cfg.do_overlap = do_overlap
-    prior_kernel = os.environ.get("DARWIN_TPU_KERNEL")
-    os.environ["DARWIN_TPU_KERNEL"] = "lax"
-    dispatch.use_pallas.cache_clear()
+    dispatch.select_kernel("lax")
     store = load_genome(ref_fa)
 
     log = []
     orig = dispatch.extend_tiles_async
 
     def wrapped(ref_codes, query_codes, r_start, r_size, q_start, q_size,
-                rev, params, *, qt, rt, max_tb):
+                rev, params, *, qt, rt, max_tb, chain=None):
         resolve = orig(ref_codes, query_codes, r_start, r_size, q_start,
-                       q_size, rev, params, qt=qt, rt=rt, max_tb=max_tb)
+                       q_size, rev, params, qt=qt, rt=rt, max_tb=max_tb,
+                       chain=chain)
 
         def resolve2():
             res = resolve()
@@ -101,11 +98,7 @@ def audit(ref_fa: str, reads_fa: str, cfg, batch: int = 128,
     finally:
         dispatch.extend_tiles_async = orig
         ext_mod.extend_tiles_async = orig
-        if prior_kernel is None:
-            os.environ.pop("DARWIN_TPU_KERNEL", None)
-        else:
-            os.environ["DARWIN_TPU_KERNEL"] = prior_kernel
-        dispatch.use_pallas.cache_clear()
+        dispatch.select_kernel("")
 
     # one ExtensionManager per batch shares the aligner's upload layout;
     # regather per logged round using the recorded absolute addresses and
